@@ -1,0 +1,43 @@
+"""mellon_tpu_torch: the density main path of mellon_tpu in PyTorch and CUDA.
+
+A port of ``mellon_tpu`` (JAX, TPU) to PyTorch on an NVIDIA H100.  It runs
+``DensityEstimator().fit_predict(x)`` and ``.predict(x_new)``; the
+Matern-5/2 covariance tile is a hand-written CUDA kernel for ``sm_90a``
+(``csrc/matern52_tile.cu``), built from source at first use.  Importing the
+package turns TF32 off (see :mod:`.config`).
+"""
+
+from . import config
+from .config import DEFAULT_DEVICE, DEFAULT_DTYPE
+from .convert import state_from_jax
+from .inference.conditionals import LandmarksConditionalCholesky
+from .inference.predictors import Predictor
+from .models.density import DensityEstimator
+from .ops.kernels import (
+    Covariance,
+    Exponential,
+    ExpQuad,
+    Linear,
+    Matern32,
+    Matern52,
+    RatQuad,
+)
+from .utils.util import GaussianProcessType
+
+__all__ = [
+    "config",
+    "DEFAULT_DEVICE",
+    "DEFAULT_DTYPE",
+    "Covariance",
+    "DensityEstimator",
+    "Exponential",
+    "ExpQuad",
+    "GaussianProcessType",
+    "LandmarksConditionalCholesky",
+    "Linear",
+    "Matern32",
+    "Matern52",
+    "Predictor",
+    "RatQuad",
+    "state_from_jax",
+]

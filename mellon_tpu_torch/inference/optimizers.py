@@ -1,0 +1,216 @@
+"""L-BFGS for the MAP fit (counterpart of ``mellon_tpu/inference/optimizers.py``).
+
+The JAX package runs ``optax.lbfgs`` inside one ``lax.while_loop``.  This
+is the same method written for PyTorch: memory 10, the two-loop recursion
+with the identity scaled by sᵀy/yᵀy (and by min(1, 1/‖g‖) on the first
+step), a strong-Wolfe zoom line search that starts every iteration at step
+1 (c1 = 1e-4, c2 = 0.9, at most 20 evaluations, doubling while
+bracketing), and the stopping rule ‖g‖ < tol·max(1, |loss|) with
+max_iter = 400 and tol = 1e-5.  Like optax, sufficient decrease is
+Armijo's condition or, close to the minimum where float32 cannot resolve
+the Armijo decrease, Hager and Zhang's approximate one (slope at most
+(2c1 − 1) times the initial slope, loss at most 1e-6·|loss| above the
+start).  Where the line search finds no such step within its budget, the
+lowest loss that decreased is taken; where none decreased, the run stops
+(optax would move to its last trial).
+
+Host reads: the line search decides on the host, so every loss evaluation
+ends in exactly one read of a small tensor (the loss, the slope along the
+direction and the gradient norm, which the stopping rule reuses).  A step
+that takes its first trial costs one evaluation and one read; ``n_evals``
+in the result is therefore also the number of host reads.  The two-loop
+recursion itself stays on the device.
+"""
+
+import logging
+import math
+from collections import deque, namedtuple
+
+import torch
+
+logger = logging.getLogger("mellon_tpu_torch")
+
+DEFAULT_OPTIMIZER = "L-BFGS-B"
+DEFAULT_LBFGS_MAX_ITER = 400
+DEFAULT_LBFGS_TOL = 1e-5
+DEFAULT_MEMORY_SIZE = 10
+MAX_LINESEARCH_STEPS = 20
+SLOPE_RTOL = 1e-4  # c1, sufficient decrease
+CURV_RTOL = 0.9  # c2, strong curvature
+APPROX_DEC_RTOL = 1e-6  # approximate-decrease slack, relative to |loss|
+
+LBFGSResult = namedtuple("LBFGSResult", "pre_transformation loss n_steps n_evals")
+_Trial = namedtuple("_Trial", "step phi dphi gnorm z value grad")
+
+
+def _two_loop(grad, history, gamma):
+    """L-BFGS inverse-Hessian product H·grad from the stored pairs
+    (s, y, rho), oldest first; a pair with rho = 0 contributes nothing."""
+    q = grad
+    alphas = []
+    for s, y, rho in reversed(history):
+        a = rho * torch.dot(s, q)
+        alphas.append(a)
+        q = q - a * y
+    r = gamma * q
+    for (s, y, rho), a in zip(history, reversed(alphas)):
+        b = rho * torch.dot(y, r)
+        r = r + s * (a - b)
+    return r
+
+
+def _interpolate(lo, hi):
+    """Minimizer of the cubic through the bracket ends, kept inside the
+    middle 80% of the bracket; bisection where the cubic does not help."""
+    a, b = lo.step, hi.step
+    mid = (a + b) / 2
+    if not all(math.isfinite(v) for v in (lo.phi, lo.dphi, hi.phi, hi.dphi)) or a == b:
+        return mid
+    d1 = lo.dphi + hi.dphi - 3 * (lo.phi - hi.phi) / (a - b)
+    disc = d1 * d1 - lo.dphi * hi.dphi
+    if disc < 0:
+        return mid
+    d2 = math.copysign(math.sqrt(disc), b - a)
+    denom = hi.dphi - lo.dphi + 2 * d2
+    if denom == 0:
+        return mid
+    t = b - (b - a) * (hi.dphi + d2 - d1) / denom
+    low, high = min(a, b), max(a, b)
+    margin = 0.1 * (high - low)
+    if not (low + margin <= t <= high - margin):
+        return mid
+    return t
+
+
+def _line_search(fun, z, value, grad, direction, phi0):
+    """Strong-Wolfe zoom line search (Nocedal & Wright, Alg. 3.5/3.6).
+    Returns (trial, dphi0, number of evaluations); the trial is None when
+    no step decreased the loss."""
+    dphi0_dev = torch.dot(grad, direction)
+    dphi0 = None
+    tried = []
+
+    def evaluate(step):
+        nonlocal dphi0
+        z_t = z + step * direction
+        v, g = fun(z_t)
+        parts = [v, torch.dot(g, direction), torch.linalg.vector_norm(g)]
+        if dphi0 is None:
+            parts.append(dphi0_dev)
+        host = torch.stack(parts).tolist()
+        if dphi0 is None:
+            dphi0 = host[3]
+        trial = _Trial(step, host[0], host[1], host[2], z_t, v, g)
+        tried.append(trial)
+        return trial
+
+    def decreases(t):
+        if not math.isfinite(t.phi):
+            return False
+        armijo = t.phi <= phi0 + SLOPE_RTOL * t.step * dphi0
+        approx = (
+            t.dphi <= (2 * SLOPE_RTOL - 1) * dphi0
+            and t.phi <= phi0 + APPROX_DEC_RTOL * abs(phi0)
+        )
+        return armijo or approx
+
+    def too_long(t, ref_phi):
+        return not decreases(t) or t.phi >= ref_phi
+
+    def zoom(lo, hi):
+        while len(tried) < MAX_LINESEARCH_STEPS:
+            if abs(hi.step - lo.step) <= 1e-12 * max(1.0, lo.step):
+                return None
+            t = evaluate(_interpolate(lo, hi))
+            if too_long(t, lo.phi):
+                hi = t
+            else:
+                if abs(t.dphi) <= CURV_RTOL * abs(dphi0):
+                    return t
+                if t.dphi * (hi.step - lo.step) >= 0:
+                    hi = lo
+                lo = t
+        return None
+
+    prev = _Trial(0.0, phi0, None, None, z, value, grad)
+    step = 1.0
+    found = None
+    while len(tried) < MAX_LINESEARCH_STEPS:
+        t = evaluate(step)
+        if dphi0 >= 0:
+            return None, dphi0, len(tried)
+        if prev.dphi is None:
+            prev = prev._replace(dphi=dphi0)
+        if too_long(t, prev.phi if prev.step > 0 else math.inf):
+            found = zoom(prev, t)
+            break
+        if abs(t.dphi) <= CURV_RTOL * abs(dphi0):
+            found = t
+            break
+        if t.dphi >= 0:
+            found = zoom(t, prev)
+            break
+        prev = t
+        step *= 2.0
+    if found is None:
+        # no point met both Wolfe conditions within the budget: take the
+        # lowest loss among the sufficiently decreasing steps
+        safe = [t for t in tried if decreases(t)]
+        found = min(safe, key=lambda t: t.phi) if safe else None
+    return found, dphi0, len(tried)
+
+
+def minimize_lbfgs(
+    value_and_grad,
+    initial_value,
+    max_iter=DEFAULT_LBFGS_MAX_ITER,
+    tol=DEFAULT_LBFGS_TOL,
+    memory_size=DEFAULT_MEMORY_SIZE,
+):
+    """Minimize ``value_and_grad(z) -> (loss, grad)`` from ``initial_value``.
+
+    Stops once ‖g‖ < tol·max(1, |loss|) (after at least one step), after
+    ``max_iter`` steps, or when the line search finds no decrease.
+    """
+    fun = value_and_grad
+    z = initial_value.clone()
+    value, grad = fun(z)
+    phi, gnorm = torch.stack([value, torch.linalg.vector_norm(grad)]).tolist()
+    n_evals = 1
+    history = deque(maxlen=memory_size)
+    gamma = min(1.0, 1.0 / gnorm) if gnorm > 0 else 1.0
+    count = 0
+    while count == 0 or (count < max_iter and gnorm >= tol * max(1.0, abs(phi))):
+        if not math.isfinite(phi):
+            logger.warning("L-BFGS stopped at a non-finite loss %s.", phi)
+            break
+        direction = -_two_loop(grad, history, gamma)
+        trial, dphi0, evals = _line_search(fun, z, value, grad, direction, phi)
+        n_evals += evals
+        if trial is None and dphi0 >= 0 and history:
+            # the quasi-Newton direction is not a descent direction:
+            # forget the curvature pairs and retry along the gradient
+            history.clear()
+            direction = -min(1.0, 1.0 / gnorm) * grad
+            trial, _, evals = _line_search(fun, z, value, grad, direction, phi)
+            n_evals += evals
+        if trial is None:
+            logger.info(
+                "L-BFGS line search found no decrease after %d steps "
+                "(gradient norm %.3g); stopping.",
+                count,
+                gnorm,
+            )
+            break
+        s = trial.z - z
+        y = trial.grad - grad
+        sy = torch.dot(s, y)
+        yy = torch.dot(y, y)
+        # pairs without positive curvature are kept inert (rho = 0)
+        rho = torch.where(sy > 0, 1.0 / sy, torch.zeros_like(sy))
+        history.append((s, y, rho))
+        gamma = torch.where((sy > 0) & (yy > 0), sy / yy, torch.ones_like(sy))
+        z, value, grad, phi, gnorm = trial.z, trial.value, trial.grad, trial.phi, trial.gnorm
+        count += 1
+    logger.info("L-BFGS finished after %d steps with loss %.6g.", count, phi)
+    return LBFGSResult(z, phi, count, n_evals)

@@ -1,0 +1,283 @@
+"""Shared estimator machinery: validated constructor, lazy attribute
+preparation, the landmark factorization with f32 pruning, and the
+optimizer dispatch (counterpart of ``mellon_tpu/models/base.py``).
+
+Every tensor of an estimator lives on its ``device`` in its ``dtype``
+(``cuda`` and float32 unless asked otherwise).
+"""
+
+import logging
+
+import torch
+
+from ..config import resolve_device_dtype
+from ..inference.optimizers import DEFAULT_OPTIMIZER, minimize_lbfgs
+from ..ops.kernels import Matern52
+from ..ops.linalg import (
+    PIVOT_REL_TOL,
+    _jittered_cholesky,
+    safe_cholesky,
+    select_stable_landmarks,
+)
+from ..parameters import (
+    DEFAULT_RANDOM_SEED,
+    _require_ported_gp_type,
+    compute_cov_func,
+    compute_gp_type,
+    compute_L,
+    compute_landmarks,
+    compute_Lp,
+    compute_ls,
+    compute_n_landmarks,
+    compute_nn_distances,
+    compute_rank,
+)
+from ..utils.parameter_validation import (
+    validate_cov_func,
+    validate_cov_func_curry,
+    validate_params,
+)
+from ..utils.util import DEFAULT_JITTER, GaussianProcessType, object_str, test_rank
+from ..utils.validation import (
+    validate_array,
+    validate_bool,
+    validate_float,
+    validate_float_or_int,
+    validate_float_or_iterable_numerical,
+    validate_nn_distances,
+    validate_positive_float,
+    validate_positive_int,
+)
+
+DEFAULT_COV_FUNC = Matern52
+RANK_FRACTION_THRESHOLD = 0.8
+SAMPLE_LANDMARK_RATIO = 10
+
+# what the other optimizers of the JAX package wait for
+_OPTIMIZER_ROADMAP = {
+    "adam": "ROADMAP Queue 1, item 7",
+    "advi": "ROADMAP Queue 1, item 11",
+    "nuts": "ROADMAP Queue 1, item 16",
+    "smc": "ROADMAP Queue 1, item 16",
+}
+
+logger = logging.getLogger("mellon_tpu_torch")
+
+
+class BaseEstimator:
+    """Base class of the estimators."""
+
+    def __init__(
+        self,
+        cov_func_curry=DEFAULT_COV_FUNC,
+        n_landmarks=None,
+        rank=None,
+        jitter=DEFAULT_JITTER,
+        optimizer=DEFAULT_OPTIMIZER,
+        landmarks=None,
+        gp_type=None,
+        nn_distances=None,
+        d=None,
+        mu=0,
+        ls=None,
+        ls_factor=1,
+        cov_func=None,
+        Lp=None,
+        L=None,
+        initial_value=None,
+        check_rank=None,
+        random_state=DEFAULT_RANDOM_SEED,
+        device=None,
+        dtype=None,
+    ):
+        self.device, self.dtype = resolve_device_dtype(device, dtype)
+        if optimizer != DEFAULT_OPTIMIZER:
+            if optimizer in _OPTIMIZER_ROADMAP:
+                raise NotImplementedError(
+                    f"optimizer={optimizer!r} is not ported to mellon_tpu_torch "
+                    f"yet ({_OPTIMIZER_ROADMAP[optimizer]}); use 'L-BFGS-B'."
+                )
+            raise ValueError(
+                f"optimizer should be one of {{'L-BFGS-B'}}, got '{optimizer}' instead."
+            )
+        self.optimizer = optimizer
+        array = dict(optional=True, dtype=self.dtype, device=self.device)
+        self.cov_func_curry = validate_cov_func_curry(cov_func_curry, cov_func, "cov_func_curry")
+        self.n_landmarks = validate_positive_int(n_landmarks, "n_landmarks", optional=True)
+        self.random_state = validate_positive_int(random_state, "random_state", optional=True)
+        self.rank = validate_float_or_int(rank, "rank", optional=True)
+        self.jitter = validate_positive_float(jitter, "jitter")
+        self.landmarks = validate_array(landmarks, "landmarks", **array)
+        self.gp_type = GaussianProcessType.from_string(gp_type, optional=True)
+        self.nn_distances = validate_nn_distances(
+            validate_array(nn_distances, "nn_distances", **array), optional=True
+        )
+        self.mu = validate_float(mu, "mu", optional=True)
+        self.ls = validate_positive_float(ls, "ls", optional=True)
+        self.ls_factor = validate_positive_float(ls_factor, "ls_factor")
+        self.cov_func = validate_cov_func(cov_func, "cov_func", optional=True)
+        self.Lp = validate_array(Lp, "Lp", **array)
+        self.L = validate_array(L, "L", **array)
+        self.d = validate_float_or_iterable_numerical(d, "d", optional=True, positive=True)
+        if isinstance(self.d, torch.Tensor):
+            self.d = self.d.to(device=self.device, dtype=self.dtype)
+        self.initial_value = validate_array(initial_value, "initial_value", **array)
+        self.check_rank = validate_bool(check_rank, "check_rank", optional=True)
+        self.x = None
+        self.pre_transformation = None
+
+    def __repr__(self):
+        return (
+            f"{self.__class__.__name__}("
+            f"\n    cov_func={self.cov_func},"
+            f"\n    device={self.device}, dtype={self.dtype},"
+            f"\n    gp_type={self.gp_type},"
+            f"\n    jitter={self.jitter},"
+            f"\n    landmarks={object_str(self.landmarks, ['landmarks', 'dims'])},"
+            f"\n    L={object_str(self.L, ['cells', 'ranks'])},"
+            f"\n    ls={self.ls},"
+            f"\n    mu={self.mu},"
+            f"\n    n_landmarks={self.n_landmarks},"
+            f"\n    optimizer={self.optimizer},"
+            f"\n    random_state={self.random_state},"
+            "\n)"
+        )
+
+    def set_x(self, x):
+        """Validate and pin the training data on the estimator's device."""
+        if self.x is not None and x is not None and self.x is not x:
+            message = "self.x has been set already, but is not equal to the argument x."
+            logger.error(message)
+            raise ValueError(message)
+        if self.x is None and x is None:
+            message = "Required argument x is missing and self.x has not been set."
+            logger.error(message)
+            raise ValueError(message)
+        if x is None:
+            x = self.x
+        self.x = validate_array(x, "x", ndim=2, dtype=self.dtype, device=self.device)
+        return self.x
+
+    def _compute_n_landmarks(self):
+        return compute_n_landmarks(self.gp_type, self.x.shape[0], self.landmarks)
+
+    def _compute_rank(self):
+        return compute_rank(self.gp_type)
+
+    def _compute_gp_type(self):
+        return compute_gp_type(self.n_landmarks, self.rank, self.x.shape[0])
+
+    def _compute_landmarks(self):
+        n_samples = self.x.shape[0]
+        if n_samples > 100 * self.n_landmarks and n_samples > 1e6:
+            logger.info(
+                f"Large number of {n_samples:,} cells and small number of "
+                f"{self.n_landmarks:,} landmarks. Consider computing k-means on a "
+                "subset of cells and passing the results as 'landmarks' to speed "
+                "up the process."
+            )
+        seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
+        return compute_landmarks(
+            self.x, self.gp_type, n_landmarks=self.n_landmarks, random_state=seed
+        )
+
+    def _compute_nn_distances(self):
+        logger.info("Computing nearest neighbor distances.")
+        return validate_nn_distances(compute_nn_distances(self.x))
+
+    def _compute_ls(self):
+        return compute_ls(self.nn_distances) * self.ls_factor
+
+    def _compute_cov_func(self):
+        cov_func = compute_cov_func(self.cov_func_curry, self.ls)
+        logger.info("Using covariance function %s.", str(cov_func))
+        return cov_func
+
+    def _lp_accept_or_prune(self, K, L, ok):
+        """Accept the f32 Cholesky attempt (L, ok) of the landmark kernel K,
+        or prune to the pivoted-Cholesky landmark subset and factorize its
+        submatrix.  (Keeping every landmark with a float64 factor is the
+        JAX package's opt-out ``PRUNE_SINGULAR_LANDMARKS = False``; it is
+        not ported.)"""
+        if bool(ok):
+            return L
+        piv = select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL)
+        logger.warning(
+            "Landmark kernel is singular at f32; pruning %d "
+            "redundant landmarks (keeping %d).",
+            self.landmarks.shape[0] - len(piv),
+            len(piv),
+        )
+        self.landmarks = self.landmarks[piv]
+        self.n_landmarks = int(len(piv))
+        if self.check_rank is None:
+            # rank is known by construction; skip the SVD check
+            self.check_rank = False
+        return safe_cholesky(K[piv][:, piv], jitter=self.jitter, max_tries=3)
+
+    def _compute_Lp(self):
+        # float32 sparse case: when the landmark kernel is singular at f32,
+        # prune to the pivoted-Cholesky subset (_lp_accept_or_prune)
+        if (
+            self.landmarks is not None
+            and self.gp_type
+            in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED)
+            and self.dtype != torch.float64
+        ):
+            K = self.cov_func(self.landmarks, self.landmarks)
+            L, ok = _jittered_cholesky(K, self.jitter)
+            return self._lp_accept_or_prune(K, L, ok)
+        return compute_Lp(
+            self.x, self.cov_func, self.gp_type, self.landmarks, sigma=0, jitter=self.jitter
+        )
+
+    def _compute_L(self):
+        L = compute_L(
+            self.x,
+            self.cov_func,
+            self.gp_type,
+            landmarks=self.landmarks,
+            Lp=self.Lp,
+            rank=self.rank,
+            sigma=0,
+            jitter=self.jitter,
+        )
+        n_samples = self.x.shape[0]
+        n_landmarks = self.landmarks.shape[0]
+        check_rank = self.check_rank
+        if (
+            check_rank is None
+            and self.gp_type == GaussianProcessType.SPARSE_CHOLESKY
+            and SAMPLE_LANDMARK_RATIO * n_landmarks < n_samples
+        ) or bool(check_rank):
+            logger.info(
+                "Estimating approximation accuracy "
+                f"since {n_samples:,} samples are more than "
+                f"{SAMPLE_LANDMARK_RATIO} x {n_landmarks:,} landmarks."
+            )
+            test_rank(L, threshold=RANK_FRACTION_THRESHOLD)
+        logger.info(f"Using rank {L.shape[1]:,} covariance representation.")
+        return L
+
+    def validate_parameter(self):
+        """Cross-check the parameter combination; refuse GP types that are
+        not ported yet."""
+        validate_params(
+            self.rank, self.gp_type, self.x.shape[0], self.n_landmarks, self.landmarks
+        )
+        _require_ported_gp_type(self.gp_type)
+
+    def _run_inference(self):
+        """MAP fit of the latents by L-BFGS."""
+        logger.info("Running inference using %s.", self.optimizer)
+        results = minimize_lbfgs(self._value_and_grad, self.initial_value)
+        self.pre_transformation = results.pre_transformation
+        self.pre_transformation_std = None
+        self.losses = [results.loss]
+        self.opt_state = results
+
+    def _prepare_attribute(self, attribute):
+        """Lazy attribute computation via the ``_compute_<attr>`` convention."""
+        if getattr(self, attribute) is not None:
+            return
+        setattr(self, attribute, getattr(self, "_compute_" + attribute)())

@@ -1,0 +1,238 @@
+"""Cell-state density estimation (counterpart of ``mellon_tpu/models/density.py``).
+
+``DensityEstimator().fit_predict(x)`` runs the main path: 1-NN distances and
+their repair, the d/mu/ls heuristics, k-means landmarks, the landmark
+Cholesky (pruned when singular at f32), L = k(x, xu) Lp⁻ᵀ, the ridge warm
+start, L-BFGS on the density loss and f = L z + μ.  ``.predict`` builds
+the landmark conditional-mean predictor lazily.
+"""
+
+import logging
+
+from ..inference.factories import compute_conditional
+from ..inference.losses import (
+    compute_log_density_x,
+    compute_loss_func,
+    compute_transform,
+    make_density_value_and_grad,
+)
+from ..inference.optimizers import DEFAULT_OPTIMIZER
+from ..parameters import DEFAULT_RANDOM_SEED, compute_d, compute_initial_value, compute_mu
+from ..utils.util import DEFAULT_JITTER
+from ..utils.validation import validate_array, validate_bool, validate_string
+from .base import DEFAULT_COV_FUNC, BaseEstimator
+
+DEFAULT_D_METHOD = "embedding"
+
+# the attributes prepare_inference computes, in order: the sizes, which
+# validate_parameter checks, then the main path's stages
+SIZE_ATTRIBUTES = ("n_landmarks", "rank", "gp_type")
+PREPARED_ATTRIBUTES = (
+    "nn_distances",
+    "d",
+    "mu",
+    "ls",
+    "cov_func",
+    "landmarks",
+    "Lp",
+    "L",
+    "initial_value",
+    "transform",
+    "loss_func",
+)
+
+logger = logging.getLogger("mellon_tpu_torch")
+
+
+class DensityEstimator(BaseEstimator):
+    """Bayesian log-density model with a GP prior and a 1-NN likelihood.
+
+    Takes the arguments of ``mellon_tpu.DensityEstimator`` that the main
+    path uses, plus ``device`` (default ``"cuda"``) and ``dtype`` (default
+    ``torch.float32``).  ``landmarks=`` fixes the landmarks instead of
+    drawing them by k-means.
+    """
+
+    def __init__(
+        self,
+        cov_func_curry=DEFAULT_COV_FUNC,
+        n_landmarks=None,
+        rank=None,
+        gp_type=None,
+        d_method=DEFAULT_D_METHOD,
+        jitter=DEFAULT_JITTER,
+        optimizer=DEFAULT_OPTIMIZER,
+        landmarks=None,
+        nn_distances=None,
+        d=None,
+        mu=None,
+        ls=None,
+        ls_factor=1,
+        cov_func=None,
+        Lp=None,
+        L=None,
+        initial_value=None,
+        predictor_with_uncertainty=False,
+        check_rank=None,
+        random_state=DEFAULT_RANDOM_SEED,
+        precision=None,
+        device=None,
+        dtype=None,
+    ):
+        if validate_bool(predictor_with_uncertainty, "predictor_with_uncertainty"):
+            raise NotImplementedError(
+                "predictor_with_uncertainty is not ported to mellon_tpu_torch "
+                "yet (ROADMAP Queue 1, item 11)."
+            )
+        if precision not in (None, "f32"):
+            raise NotImplementedError(
+                f"precision={precision!r} is not ported to mellon_tpu_torch yet "
+                "(ROADMAP Queue 1, item 7: the two-phase bf16 MAP)."
+            )
+        super().__init__(
+            cov_func_curry=cov_func_curry,
+            n_landmarks=n_landmarks,
+            rank=rank,
+            jitter=jitter,
+            gp_type=gp_type,
+            optimizer=optimizer,
+            landmarks=landmarks,
+            nn_distances=nn_distances,
+            d=d,
+            mu=mu,
+            ls=ls,
+            ls_factor=ls_factor,
+            cov_func=cov_func,
+            Lp=Lp,
+            L=L,
+            initial_value=initial_value,
+            check_rank=check_rank,
+            random_state=random_state,
+            device=device,
+            dtype=dtype,
+        )
+        if d is not None:
+            self.d_method = "manual"
+            logger.info(f"Explicitly provided d={d}, setting d_method to 'manual'.")
+        else:
+            self.d_method = validate_string(
+                d_method, "d_method", choices={"fractal", "embedding", "manual"}
+            )
+            if self.d_method == "fractal":
+                raise NotImplementedError(
+                    'd_method="fractal" is not ported to mellon_tpu_torch yet '
+                    "(ROADMAP Queue 1, item 14: local dimensionality)."
+                )
+        self.transform = None
+        self.loss_func = None
+        self.losses = None
+        self.pre_transformation = None
+        self.pre_transformation_std = None
+        self.log_density_x = None
+        self.log_density_func = None
+
+    def _compute_d(self):
+        if self.d_method == "manual":
+            if self.d is None:
+                raise ValueError(
+                    'd_method="manual" requires the intrinsic '
+                    "dimensionality d to be passed explicitly."
+                )
+            d = self.d
+            logger.info(f"Using manually set d={d}.")
+        else:
+            d = compute_d(self.x)
+            logger.info(
+                f"Using embedding dimensionality d={d}. "
+                'Use d_method="fractal" to enable effective density normalization.'
+            )
+        if float(d if not hasattr(d, "max") else d.max()) > 50:
+            raise ValueError(
+                f"The detected dimensionality of the data is over 50, which is "
+                "likely to cause numerical instability issues. Consider running a "
+                "dimensionality reduction algorithm, or if this number of "
+                f"dimensions is intended, explicitly pass d={d} as a parameter."
+            )
+        return d
+
+    def _compute_mu(self):
+        return compute_mu(self.nn_distances, self.d)
+
+    def _compute_initial_value(self):
+        return compute_initial_value(self.nn_distances, self.d, self.mu, self.L)
+
+    def _compute_transform(self):
+        return compute_transform(self.mu, self.L)
+
+    def _compute_loss_func(self):
+        self._value_and_grad = make_density_value_and_grad(
+            self.L, self.nn_distances, self.d, self.mu
+        )
+        return compute_loss_func(
+            self.nn_distances, self.d, self.transform, self.initial_value.shape[0]
+        )
+
+    def _set_log_density_x(self):
+        self.log_density_x = compute_log_density_x(self.pre_transformation, self.transform)
+
+    def _set_log_density_func(self):
+        logger.info("Computing predictive function.")
+        log_density_func = compute_conditional(
+            self.x,
+            self.landmarks,
+            self.pre_transformation,
+            self.mu,
+            self.cov_func,
+            self.Lp,
+            jitter=self.jitter,
+        )
+        log_density_func.n_obs = self.x.shape[0]
+        log_density_func.d = self.d
+        log_density_func.d_method = self.d_method
+        self.log_density_func = log_density_func
+
+    def prepare_inference(self, x):
+        """Set every attribute the optimization needs; returns
+        ``(loss_func, initial_value)``."""
+        x = self.set_x(x)
+        for attribute in SIZE_ATTRIBUTES:
+            self._prepare_attribute(attribute)
+        self.validate_parameter()
+        for attribute in PREPARED_ATTRIBUTES:
+            self._prepare_attribute(attribute)
+        return self.loss_func, self.initial_value
+
+    def run_inference(self):
+        """Optimize the latents; returns ``pre_transformation``."""
+        self._run_inference()
+        return self.pre_transformation
+
+    def process_inference(self, pre_transformation=None, build_predict=True):
+        """Log density at the training points and, optionally, the predictor."""
+        if pre_transformation is not None:
+            self.pre_transformation = validate_array(
+                pre_transformation, "pre_transformation", dtype=self.dtype, device=self.device
+            )
+        self._set_log_density_x()
+        if build_predict:
+            self._set_log_density_func()
+        return self.log_density_x
+
+    def fit(self, x=None, build_predict=True):
+        """End-to-end training."""
+        self.prepare_inference(x)
+        self.run_inference()
+        self.process_inference(build_predict=build_predict)
+        return self
+
+    @property
+    def predict(self):
+        """The log-density predictor, built at first use."""
+        if self.log_density_func is None:
+            self._set_log_density_func()
+        return self.log_density_func
+
+    def fit_predict(self, x=None, build_predict=False):
+        """Train and return the log density at the training points."""
+        self.fit(x, build_predict=build_predict)
+        return self.log_density_x

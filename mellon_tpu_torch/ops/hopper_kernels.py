@@ -1,0 +1,171 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions.
+
+Counterpart of ``mellon_tpu/ops/pallas_kernels.py``.  The one kernel is the
+fused Matern-5/2 covariance tile (``csrc/matern52_tile.cu``), which replaces
+the Pallas kernel ``matern52_gram_pallas``.  On the density main path it
+builds the landmark gram K_uu, the cross-covariance C = k(x, xu) ahead of
+the whitening solve, and the predictor mean's k(X*, xu).
+
+:func:`matern52_gram` takes the plain version for tensors on the CPU and
+launches the CUDA kernel for tensors on a CUDA device; there is no fallback
+from one to the other.  The kernel is compiled by ``nvcc`` from the
+package's sources at first use, into ``build/`` beside the package, keyed by
+a hash of the sources: nothing prebuilt is shipped.
+"""
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
+MATERN52_SOURCE = CSRC_DIR / "matern52_tile.cu"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+# the kernel's column tiles (64 wide) lie on grid.y, at most 65535 of them
+_MAX_COLUMNS = 65535 * 64
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc():
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME is not None:
+        candidate = os.path.join(CUDA_HOME, "bin", "nvcc")
+        found = candidate if os.path.exists(candidate) else None
+    if found is None:
+        raise RuntimeError(
+            "nvcc was not found (neither on PATH nor under CUDA_HOME); the "
+            "CUDA kernels of mellon_tpu_torch are built from source at first use."
+        )
+    return found
+
+
+def build_library():
+    """Compile ``csrc/matern52_tile.cu`` into ``build/`` unless a library
+    built from the same sources and flags is there; returns its path."""
+    digest = hashlib.sha256(
+        MATERN52_SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    target = BUILD_DIR / f"libmatern52_tile-{digest}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(MATERN52_SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) building {MATERN52_SOURCE.name}:\n"
+            f"{proc.stderr}"
+        )
+    os.replace(tmp, target)
+    return target
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
+            ]
+            for fn in (lib.matern52_gram_f32, lib.matern52_gram_f64):
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.matern52_error_string.argtypes = [ctypes.c_int]
+            lib.matern52_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def matern52_gram_reference(x, y, ls):
+    """Plain PyTorch Matern-5/2 k(x, y): the same arithmetic as the kernel
+    and as the JAX package's ``Matern52`` (``_matern52_vals``)."""
+    from ..utils.util import distance
+
+    r = math.sqrt(5.0) * distance(x, y) / ls
+    return (r + r * r / 3 + 1) * torch.exp(-r)
+
+
+def _check_operands(x, y, ls):
+    if x.requires_grad or y.requires_grad:
+        raise ValueError(
+            "matern52_gram has no backward yet; call it on tensors that do "
+            "not require grad."
+        )
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(
+            f"matern52_gram needs x (n, d) and y (m, d), got {tuple(x.shape)} "
+            f"and {tuple(y.shape)}."
+        )
+    if x.dtype != y.dtype or x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(
+            f"matern52_gram takes float32 or float64 operands of one dtype, got "
+            f"{x.dtype} and {y.dtype}."
+        )
+    if x.device != y.device:
+        raise ValueError(
+            f"matern52_gram operands lie on {x.device} and {y.device}."
+        )
+    if not ls > 0:
+        raise ValueError(f"matern52_gram needs a positive length scale, got {ls}.")
+
+
+def matern52_gram(x, y, ls):
+    """Matern-5/2 cross-covariance k(x, y), shape (n, m), in x's dtype.
+
+    CPU tensors take :func:`matern52_gram_reference`; CUDA tensors launch
+    the hand-written kernel on the current stream (``matern52_gram.launches``
+    counts those launches) and raise if it cannot launch.
+    """
+    ls = float(ls)
+    _check_operands(x, y, ls)
+    if x.device.type == "cpu":
+        return matern52_gram_reference(x, y, ls)
+    if x.device.type != "cuda":
+        raise ValueError(f"matern52_gram runs on cpu or cuda, not {x.device}.")
+    n, d = x.shape
+    m = y.shape[0]
+    if max(n, d) >= 2**31 or m > _MAX_COLUMNS:
+        raise ValueError(
+            f"matern52_gram takes fewer than 2**31 rows of x and at most "
+            f"{_MAX_COLUMNS} rows of y, got {n} and {m}."
+        )
+    x = x.contiguous()
+    y = y.contiguous()
+    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    lib = _library()
+    fn = lib.matern52_gram_f32 if x.dtype == torch.float32 else lib.matern52_gram_f64
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = fn(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d, ls, x.device.index, stream
+    )
+    if code != 0:
+        raise RuntimeError(
+            "matern52_gram kernel launch failed: "
+            f"{lib.matern52_error_string(code).decode()} (cudaError {code})."
+        )
+    matern52_gram.launches += 1
+    return out
+
+
+matern52_gram.launches = 0

@@ -1,0 +1,236 @@
+"""Parameter heuristics of the density main path.
+
+Counterpart of ``mellon_tpu/parameters.py``: the gp_type / n_landmarks /
+rank decision tables, landmarks by seeded k-means, 1-NN distances, the
+d/mu/ls heuristics, the Cholesky factors and the ridge warm start.  Only
+the sparse-Cholesky and fixed GP types are ported; the others raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
+"""
+
+import logging
+
+import torch
+
+from .ops.cluster import k_means
+from .ops.linalg import DEFAULT_SIGMA, _full_rank, _standard_low_rank, ridge_solve
+from .ops.neighbors import knn_distances
+from .utils.parameter_validation import validate_params
+from .utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, mle
+from .utils.validation import (
+    validate_float_or_int,
+    validate_k,
+    validate_positive_float,
+    validate_positive_int,
+)
+
+DEFAULT_N_LANDMARKS = 5000
+DEFAULT_RANDOM_SEED = 42
+# above this cell count, k-means runs on a uniform subsample
+KMEANS_SUBSAMPLE_THRESHOLD = 200_000
+
+logger = logging.getLogger("mellon_tpu_torch")
+
+_NOT_PORTED_GP = (
+    "gp_type {} is not ported to mellon_tpu_torch yet (ROADMAP Queue 1, "
+    "item 13: Nyström and the full GP types); use the sparse-Cholesky or "
+    "fixed type."
+)
+
+
+def _require_ported_gp_type(gp_type):
+    if gp_type not in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED):
+        raise NotImplementedError(_NOT_PORTED_GP.format(gp_type))
+
+
+def compute_rank(gp_type):
+    """Default rank from the GP type."""
+    if gp_type in (GaussianProcessType.FULL_NYSTROEM, GaussianProcessType.SPARSE_NYSTROEM):
+        return 0.99
+    return 1.0
+
+
+def compute_n_landmarks(gp_type, n_samples, landmarks):
+    """Default number of landmarks."""
+    if landmarks is not None:
+        return landmarks.shape[0]
+    if gp_type is None or gp_type == GaussianProcessType.FIXED:
+        return min(n_samples, DEFAULT_N_LANDMARKS)
+    if gp_type in (GaussianProcessType.FULL, GaussianProcessType.FULL_NYSTROEM):
+        return n_samples
+    if gp_type in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.SPARSE_NYSTROEM):
+        if n_samples <= DEFAULT_N_LANDMARKS:
+            logger.warning(
+                f"Gaussian Process type {gp_type} and default "
+                f"number of landmarks {DEFAULT_N_LANDMARKS:,} < "
+                f"number of cells {n_samples:,}. Reduce n_landmarks below "
+                f"the number of cells to use {gp_type}."
+            )
+        return DEFAULT_N_LANDMARKS
+    n_landmarks = min(n_samples, DEFAULT_N_LANDMARKS)
+    logger.warning(
+        f"Unknown Gaussian Process type {gp_type}, using default "
+        f"n_landmarks={n_landmarks:,}."
+    )
+    return n_landmarks
+
+
+def compute_gp_type(n_landmarks, rank, n_samples):
+    """GP-type inference from landmarks/rank/samples."""
+    rank = validate_float_or_int(rank, "rank", optional=True)
+    n_landmarks = validate_positive_int(n_landmarks, "n_landmarks")
+    n_samples = validate_positive_int(n_samples, "n_samples")
+
+    def keeps_full_rank(basis_size):
+        return (
+            rank is None
+            or (isinstance(rank, int) and rank >= basis_size)
+            or (isinstance(rank, float) and rank >= 1.0)
+            or rank == 0
+        )
+
+    if n_landmarks == 0 or n_landmarks >= n_samples:
+        if keeps_full_rank(n_samples):
+            logger.info(
+                "Using non-sparse Gaussian Process since n_landmarks "
+                f"({n_landmarks:,}) >= n_samples ({n_samples:,}) and rank = {rank}."
+            )
+            return GaussianProcessType.FULL
+        logger.info(
+            "Using full Gaussian Process with Nyström rank reduction since "
+            f"n_landmarks ({n_landmarks:,}) >= n_samples ({n_samples:,}) "
+            f"and rank = {rank}."
+        )
+        return GaussianProcessType.FULL_NYSTROEM
+    if keeps_full_rank(n_landmarks):
+        logger.info(
+            "Using sparse Gaussian Process since n_landmarks "
+            f"({n_landmarks:,}) < n_samples ({n_samples:,}) and rank = {rank}."
+        )
+        return GaussianProcessType.SPARSE_CHOLESKY
+    logger.info(
+        "Using sparse Gaussian Process with improved Nyström rank reduction "
+        f"since n_landmarks ({n_landmarks:,}) < n_samples ({n_samples:,}) "
+        f"and rank = {rank}."
+    )
+    return GaussianProcessType.SPARSE_NYSTROEM
+
+
+def compute_landmarks(x, gp_type=None, n_landmarks=DEFAULT_N_LANDMARKS, random_state=DEFAULT_RANDOM_SEED):
+    """Landmarks as seeded k-means centroids on x's device."""
+    if n_landmarks == 0:
+        return None
+    n = x.shape[0]
+    x = ensure_2d(x)
+    if n_landmarks <= 1:
+        raise ValueError(
+            f"n_landmarks must be 0 (disabled) or greater than 1, got {n_landmarks}."
+        )
+    if n_landmarks >= n:
+        if gp_type == GaussianProcessType.FIXED:
+            logger.info(
+                f"Gaussian process type is {gp_type} and "
+                f"n_landmarks={n_landmarks:,} requested while only {n:,} "
+                f"datapoints are available. Using all {n:,} datapoints as landmarks."
+            )
+            return x
+        return None
+    seed = random_state if random_state is not None else DEFAULT_RANDOM_SEED
+    x_fit = x
+    n_sub = max(KMEANS_SUBSAMPLE_THRESHOLD, 20 * n_landmarks)
+    if n > n_sub:
+        generator = torch.Generator(device=x.device).manual_seed(int(seed))
+        idx = torch.randperm(n, generator=generator, device=x.device)[:n_sub]
+        x_fit = x[idx]
+        logger.info(
+            f"Running k-means on a uniform subsample of {n_sub:,} of "
+            f"{n:,} cells (quantization quality is insensitive to this)."
+        )
+    logger.info(
+        f"Computing {n_landmarks:,} landmarks with k-means clustering "
+        f"(random_state={random_state})."
+    )
+    return k_means(x_fit, n_landmarks, random_state=seed)
+
+
+def compute_nn_distances(x):
+    """Distance to the nearest other point of each row of x."""
+    x = ensure_2d(x)
+    n_samples = x.shape[0]
+    if n_samples == 0:
+        message = "Input data x is empty."
+        logger.error(message)
+        raise ValueError(message)
+    validate_k(1, n_samples)
+    return knn_distances(x, 1)[:, 0]
+
+
+def compute_d(x):
+    """Embedding dimensionality."""
+    if x.ndim < 2:
+        return 1
+    return x.shape[1]
+
+
+def compute_mu(nn_distances, d):
+    """1st percentile of the nearest-neighbor MLE, minus 10."""
+    return float(torch.quantile(mle(nn_distances, d), 0.01) - 10)
+
+
+def compute_ls(nn_distances):
+    """Geometric-mean nearest-neighbor distance times e³."""
+    return float(torch.exp(torch.log(nn_distances).mean() + 3.0))
+
+
+def compute_cov_func(cov_func_curry, ls):
+    """Kernel from its curry and the length scale."""
+    return cov_func_curry(ls=ls)
+
+
+def compute_Lp(x, cov_func, gp_type=None, landmarks=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
+    """Cholesky factor Lp of the landmark covariance."""
+    x = ensure_2d(x)
+    n_samples = x.shape[0]
+    if landmarks is None:
+        landmarks = x
+        n_landmarks = n_samples
+    else:
+        landmarks = ensure_2d(landmarks)
+        n_landmarks = landmarks.shape[0]
+    gp_type = GaussianProcessType.from_string(gp_type, optional=True)
+    if gp_type is None:
+        gp_type = compute_gp_type(n_landmarks, 1.0, n_samples)
+    _require_ported_gp_type(gp_type)
+    return _full_rank(landmarks, cov_func, sigma=sigma, jitter=jitter)
+
+
+def compute_L(x, cov_func, gp_type=None, landmarks=None, Lp=None, rank=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
+    """Transformation L with L Lᵀ ≈ K (sparse-Cholesky: L = k(x, xu) Lp⁻ᵀ)."""
+    jitter = validate_positive_float(jitter, "jitter")
+    rank = validate_float_or_int(rank, "rank", optional=True)
+    x = ensure_2d(x)
+    n_samples = x.shape[0]
+    n_landmarks = n_samples if landmarks is None else landmarks.shape[0]
+    gp_type = GaussianProcessType.from_string(gp_type, optional=True)
+    if rank is None:
+        rank = compute_rank(gp_type)
+    if gp_type is None:
+        gp_type = compute_gp_type(n_landmarks, rank, n_samples)
+    validate_params(rank, gp_type, n_samples, n_landmarks, landmarks)
+    _require_ported_gp_type(gp_type)
+    if landmarks is None:
+        raise NotImplementedError(_NOT_PORTED_GP.format(GaussianProcessType.FULL))
+    landmarks = ensure_2d(landmarks)
+    if Lp is not None and tuple(Lp.shape) != (n_landmarks, n_landmarks):
+        message = (
+            f" Wrong shape of Lp {tuple(Lp.shape)} for {gp_type} and "
+            f"{n_landmarks:,} landmarks."
+        )
+        logger.error(message)
+        raise ValueError(message)
+    return _standard_low_rank(x, cov_func, landmarks, Lp=Lp, sigma=sigma, jitter=jitter)
+
+
+def compute_initial_value(nn_distances, d, mu, L):
+    """Ridge warm start: z minimizing ||Lz + mu - mle||² + ||z||²."""
+    target = mle(nn_distances, d) - mu
+    return ridge_solve(L, target, 1.0)

@@ -1,0 +1,146 @@
+"""Foundation utilities: distances, jitter, MLE, GP-type enum, rank check.
+
+Counterpart of ``mellon_tpu/utils/util.py`` for the density main path.
+"""
+
+import logging
+import math
+from enum import Enum
+
+import torch
+
+logger = logging.getLogger("mellon_tpu_torch")
+
+DEFAULT_JITTER = 1e-6
+DEFAULT_RANK_TOL = 5e-1
+
+
+def distance(x, y):
+    """Pairwise Euclidean distances in the ``|x|² - 2x·yᵀ + |y|²`` form.
+
+    Same floor as the JAX package: 1e-12 is added inside the sqrt and the
+    squared distance is floored at 1e-12, not at 0, so coincident points
+    stay finite under cancellation (``mellon_tpu/utils/util.py:51-57``).
+    """
+    xx = torch.sum(x * x, dim=1)[:, None]
+    yy = torch.sum(y * y, dim=1)[None, :]
+    xy = x @ y.T
+    sq = xx - 2 * xy + yy + 1e-12
+    return torch.sqrt(torch.clamp_min(sq, 1e-12))
+
+
+def add_diagonal(A, value):
+    """A + value * I (a new tensor)."""
+    A = A.clone()
+    A.diagonal(dim1=-2, dim2=-1).add_(value)
+    return A
+
+
+def mle(nn_distances, d):
+    """Point-wise MLE of log density from 1-NN distances in d dimensions."""
+    d = torch.as_tensor(d, dtype=nn_distances.dtype, device=nn_distances.device)
+    return (
+        torch.lgamma(d / 2 + 1)
+        - (d / 2) * math.log(math.pi)
+        - d * torch.log(nn_distances)
+    )
+
+
+def ensure_2d(X):
+    """Promote a 1-d tensor to one column per sample."""
+    return X[:, None] if X.ndim == 1 else X
+
+
+def test_rank(input, tol=DEFAULT_RANK_TOL, threshold=None):
+    """Approximate-rank diagnostic of the transformation matrix L
+    (counterpart of ``mellon_tpu/utils/util.py:209``)."""
+    if isinstance(input, torch.Tensor):
+        L = input
+    elif hasattr(input, "L"):
+        L = input.L
+        if L is None:
+            raise AttributeError(
+                "Matrix L is not found in the estimator object. "
+                "Consider running `.prepare_inference()`."
+            )
+    else:
+        raise TypeError(
+            "Input must be either a matrix or an estimator with a transformation L."
+        )
+    if L.ndim != 2:
+        raise ValueError("Matrix L must be 2D.")
+
+    approx_rank = int(torch.linalg.matrix_rank(L, rtol=tol))
+    max_rank = min(L.shape)
+    rank_fraction = approx_rank / max_rank
+
+    if threshold is not None:
+        if rank_fraction > threshold:
+            logger.warning(
+                f"High approx. rank fraction ({rank_fraction:.1%}). "
+                "Consider increasing 'n_landmarks'."
+            )
+        else:
+            logger.info(
+                f"Rank fraction ({rank_fraction:.1%}, lower is better) is "
+                "within acceptable range. Current settings should provide "
+                "satisfactory model performance."
+            )
+    else:
+        print(
+            f"The approx. rank fraction is {rank_fraction:.1%} "
+            f"({approx_rank:,} of {max_rank:,}). Lower is better."
+        )
+    return approx_rank
+
+
+class GaussianProcessType(str, Enum):
+    """Sparse-GP strategy selector with fuzzy string parsing (same values
+    and parsing as ``mellon_tpu.utils.util.GaussianProcessType``)."""
+
+    FULL = "full"
+    FULL_NYSTROEM = "full_nystroem"
+    SPARSE_CHOLESKY = "sparse_cholesky"
+    SPARSE_NYSTROEM = "sparse_nystroem"
+    FIXED = "fixed"
+
+    @staticmethod
+    def from_string(s, optional: bool = False):
+        if s is None:
+            if optional:
+                return None
+            logger.error("Gaussian process type must be specified but is None.")
+            raise ValueError("Gaussian process type must be specified but is None.")
+        if isinstance(s, GaussianProcessType):
+            return s
+        if not isinstance(s, str):
+            raise ValueError(f"Unknown Gaussian Process type: {s}")
+
+        normalized = s.lower().replace(" ", "_")
+        for gp_type in GaussianProcessType:
+            if gp_type.value == normalized:
+                logger.info(f"Gaussian Process type: {gp_type.value}")
+                return gp_type
+        for gp_type in GaussianProcessType:
+            if normalized in gp_type.value:
+                logger.warning(
+                    f"Partial match found for Gaussian Process type: "
+                    f"{gp_type.value}. Input was: {s}"
+                )
+                return gp_type
+        message = f"Unknown Gaussian Process type: {s}"
+        logger.error(message)
+        raise ValueError(message)
+
+
+def object_str(obj, dim_names=None):
+    """Concise metadata repr for tensors."""
+    if isinstance(obj, torch.Tensor):
+        dims = obj.shape
+        names = list(dim_names or [])
+        dim_strs = [
+            f"{dim:,} {name}" if name else f"{dim:,}"
+            for dim, name in zip(dims, names + [None] * (len(dims) - len(names)))
+        ]
+        return f"<tensor {' x '.join(dim_strs)}, dtype={obj.dtype}, device={obj.device}>"
+    return str(obj)
