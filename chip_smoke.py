@@ -18,15 +18,28 @@ Phases, each printed as it runs (any failure raises and exits non-zero):
    each launch are kept;
 4. kernel: the CUDA tile against its plain PyTorch version on the card, on
    the operands the main path gave it (K_uu, C, the two predictor calls)
-   and at two synthetic shapes (ragged 1000x333x7; more than 65535 row
-   tiles), in float32 (max abs error <= 1e-5) and float64 (<= 1e-12), with
-   the median time of 20 launches of each at every main-path shape;
-5. timing: the warm fit time (median of 3) and a per-stage breakdown.
+   and at synthetic shapes (ragged and unaligned, d from 1 to 130, one
+   output element, more rows or columns than 65535 tiles of 64), in
+   float32 (max abs error <= 1e-5) and float64 (<= 1e-12).  At every
+   main-path shape, in both types, the kernel's device time (median of
+   N_RUNS runs of CUDA events around N_LAUNCHES back-to-back launches of
+   its C entry point into one output, divided by N_LAUNCHES) beside the
+   plain version's, timed the same way, and the bound: the larger of the
+   bytes over the memory rate and the flops over the peak rate;
+5. predictor batch: the kernel alone (the plain version's temporaries are
+   several times the 1.64 GB output) at PREDICT_BATCH query points
+   against the kept landmarks, float32, checked against the plain version
+   on its first and last rows;
+6. wrapper: the host time of one ``matern52_gram`` call, over 1,000 calls
+   without a synchronise;
+7. timing: the warm fit time (median of 3) and a per-stage breakdown.
 
-The line before the last is the JSON kernel report (``ms``/``plain_ms``:
-the kernel's and the plain version's time summed over the main path's
-launches); the last line is ``{"ok": true, "device": {...}}``.  Without a
-CUDA device the script exits with status 2 and prints no result.
+The line before the last is the JSON kernel report (``ms``, ``plain_ms``
+and ``bound_ms``: the kernel's, the plain version's and the bound's time
+summed over the main path's launches in float32; ``shapes``: each shape
+and type with its own times and share of the bound); the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+with status 2 and prints no result.
 """
 
 import json
@@ -38,36 +51,98 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "benchdata", "ld_ref_8627x20_f64.npz")
-# edge cases the main path does not reach: ragged tiles and a feature
-# count below one staged chunk; more row tiles than grid.y could hold
-SYNTHETIC_SHAPES = ((1000, 333, 7), (65535 * 64 + 5, 3, 2))
+# edge cases the main path does not reach: ragged tiles with m not a
+# multiple of the vector width; one and several feature chunks; a single
+# element; more row or column tiles than a grid axis of 65535 would hold
+SYNTHETIC_SHAPES = (
+    (1000, 333, 7), (777, 1000, 1), (1000, 512, 50), (300, 260, 130), (1, 1, 20),
+    (65535 * 64 + 5, 3, 2), (3, 65535 * 64 + 5, 2),
+)
 TOLERANCE = {"float32": 1e-5, "float64": 1e-12}
 CERT_MIN_CORR = 0.999
 CERT_MAX_RMSE = 0.01
-N_TIMED = 20
+N_LAUNCHES = 20
+N_RUNS = 7
+PREDICT_BATCH = 200_000
 DEVICE = "cuda"
+
+# H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
+# peak rates outside the tensor cores
+MEMORY_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+ITEMSIZE = {"float32": 4, "float64": 8}
+# per output element after the cross term, counted for the bound: the
+# distance's three additions, its floor, sqrt, the scale, the polynomial's
+# two fmas, exp and the product
+EPILOGUE_FLOPS = 10
 
 
 def log(*parts):
     print(*parts, flush=True)
 
 
-def cuda_median_ms(fn, repeats=N_TIMED):
-    """Median time of ``fn()`` on the card over ``repeats`` runs after one
-    warm-up, each bracketed by CUDA events."""
+def matern52_work(n, m, d, dtype):
+    """(bytes, flops) the Matern-5/2 tile k(x (n, d), y (m, d)) needs: x
+    and y read once and the (n, m) output written once; 2d flops of cross
+    term and EPILOGUE_FLOPS per output element, 2d per row norm."""
+    nbytes = ITEMSIZE[dtype] * (n * d + m * d + n * m)
+    flops = n * m * (2 * d + EPILOGUE_FLOPS) + 2 * d * (n + m)
+    return nbytes, flops
+
+
+def matern52_bound_ms(n, m, d, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the flops over the
+    peak rate of ``dtype``."""
+    nbytes, flops = matern52_work(n, m, d, dtype)
+    by_bytes = 1e3 * nbytes / MEMORY_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_FLOPS[dtype]
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def device_ms(fn, launches=N_LAUNCHES, runs=N_RUNS):
+    """Device time of one ``fn()``: the median over ``runs`` runs of CUDA
+    events around ``launches`` back-to-back calls, divided by
+    ``launches``, after one warm-up call."""
     import torch
 
     fn()
     times = []
-    for _ in range(repeats):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop))
+        times.append(start.elapsed_time(stop) / launches)
     return statistics.median(times)
+
+
+def bare_launcher(lib, x, y, out, ls):
+    """A call of the kernel library's C entry point on contiguous (x, y)
+    into ``out``, on the current stream: the kernel alone, without the
+    wrapper's checks, allocation and launch count.  Its scratch buffer,
+    for a library that takes one, is allocated here once."""
+    import torch
+
+    fn = lib.matern52_gram_f32 if x.dtype == torch.float32 else lib.matern52_gram_f64
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    scratch = ()
+    if hasattr(lib, "matern52_scratch_elems"):
+        numel = lib.matern52_scratch_elems(n, m, d, x.element_size())
+        scratch = (torch.empty(numel, dtype=x.dtype, device=x.device),)
+    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in scratch),
+            n, m, d, float(ls), x.device.index, torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(f"matern52 launch failed: {lib.matern52_error_string(code).decode()}")
+
+    launch.scratch = scratch  # every launch writes it: it lives as long as the launcher
+    return launch
 
 
 def record_operands():
@@ -112,32 +187,105 @@ def check_kernel(x, y, ls, label):
     return err32
 
 
-def kernel_phase(calls):
-    """Kernel against plain version on every main-path call's operands and
-    at the synthetic shapes; returns (max float32 error over the main path,
-    kernel ms, plain ms), the times summed over the main path's calls."""
+def time_shape(lib, x, y, ls, launches):
+    """The kernel's and the plain version's device time and the bound at
+    the operands (x, y), in float32 and float64: one report row each."""
     import torch
 
-    from mellon_tpu_torch.ops.hopper_kernels import matern52_gram, matern52_gram_reference
+    from mellon_tpu_torch.ops.hopper_kernels import matern52_gram_reference
 
-    worst, total_ms, total_plain_ms, timed = 0.0, 0.0, 0.0, {}
+    rows = []
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        xa, ya = x.to(dtype).contiguous(), y.to(dtype).contiguous()
+        out = torch.empty((n, m), dtype=dtype, device=x.device)
+        ms = device_ms(bare_launcher(lib, xa, ya, out, ls))
+        plain_ms = device_ms(lambda: matern52_gram_reference(xa, ya, ls))
+        bound_ms, bound_by = matern52_bound_ms(n, m, d, name)
+        rows.append({"shape": f"{n}x{m}x{d}", "dtype": name,
+                     "launches": launches if dtype == x.dtype else 0,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "share": bound_ms / ms})
+        log(f"[kernel] {n}x{m}x{d} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+            f"bound {bound_ms!r} ms ({bound_by}), share {bound_ms / ms!r} "
+            f"(median of {N_RUNS} runs of {N_LAUNCHES} launches)")
+        del out
+    return rows
+
+
+def kernel_phase(lib, calls):
+    """Kernel against plain version on every main-path call's operands and
+    at the synthetic shapes, and its times at each main-path shape; returns
+    (max float32 error over the main path, report rows)."""
+    import torch
+
+    worst, rows, seen = 0.0, [], {}
     for x, y, ls in calls:
         shape = (x.shape[0], y.shape[0], x.shape[1])
-        if shape not in timed:
-            worst = max(worst, check_kernel(x, y, ls, "main path"))
-            ms = cuda_median_ms(lambda: matern52_gram(x, y, ls))
-            plain_ms = cuda_median_ms(lambda: matern52_gram_reference(x, y, ls))
-            timed[shape] = (ms, plain_ms)
-            log(f"[kernel] {'x'.join(map(str, shape))} float32: kernel {ms!r} ms, "
-                f"plain {plain_ms!r} ms (median of {N_TIMED})")
-        total_ms += timed[shape][0]
-        total_plain_ms += timed[shape][1]
+        seen.setdefault(shape, [x, y, ls, 0])[3] += 1
+    for x, y, ls, launches in seen.values():
+        worst = max(worst, check_kernel(x, y, ls, "main path"))
+        rows += time_shape(lib, x, y, ls, launches)
     g = torch.Generator(device=DEVICE).manual_seed(0)
     for n, m, d in SYNTHETIC_SHAPES:
         x = torch.randn(n, d, device=DEVICE, dtype=torch.float64, generator=g)
         y = torch.randn(m, d, device=DEVICE, dtype=torch.float64, generator=g)
         check_kernel(x, y, 2.5, "synthetic")
-    return worst, total_ms, total_plain_ms
+    return worst, rows
+
+
+def predict_batch_phase(lib, x, landmarks, ls):
+    """The kernel alone at PREDICT_BATCH query points (the training cells,
+    perturbed) against the kept landmarks, float32: its report row."""
+    import torch
+
+    from mellon_tpu_torch.ops.hopper_kernels import matern52_gram_reference
+
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    idx = torch.randint(0, x.shape[0], (PREDICT_BATCH,), device=DEVICE, generator=g)
+    xq = (x[idx] + 0.05 * x.std(dim=0) * torch.randn(
+        PREDICT_BATCH, x.shape[1], device=DEVICE, generator=g)).contiguous()
+    y = landmarks.float().contiguous()
+    n, m, d = PREDICT_BATCH, y.shape[0], y.shape[1]
+    out = torch.empty((n, m), dtype=torch.float32, device=DEVICE)
+    ms = device_ms(bare_launcher(lib, xq, y, out, ls), runs=5)
+    err = max(
+        (out[rows] - matern52_gram_reference(xq[rows], y, ls)).abs().max().item()
+        for rows in (slice(0, 2000), slice(n - 2000, n))
+    )
+    if not err <= TOLERANCE["float32"]:
+        raise AssertionError(f"matern52 kernel disagrees at the predictor batch: {err}")
+    bound_ms, bound_by = matern52_bound_ms(n, m, d, "float32")
+    log(f"[predict batch] {n}x{m}x{d} float32: kernel {ms!r} ms, bound {bound_ms!r} ms "
+        f"({bound_by}), share {bound_ms / ms!r}; {out.numel() * 4 / 1e9!r} GB written; "
+        f"max_abs_err on 4000 rows {err!r}")
+    return {"shape": f"{n}x{m}x{d}", "dtype": "float32", "launches": 0, "ms": ms,
+            "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / ms}
+
+
+def wrapper_host_us(calls=1000):
+    """Host time of one ``matern52_gram`` call (checks, allocation, the
+    ctypes call and the launch): a host clock over ``calls`` calls without
+    a synchronise, at a shape whose kernel is shorter than that."""
+    import torch
+
+    from mellon_tpu_torch.ops.hopper_kernels import matern52_gram
+
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn(256, 20, device=DEVICE, generator=g)
+    for _ in range(10):
+        matern52_gram(x, x, 2.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        matern52_gram(x, x, 2.5)
+    host_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    log(f"[wrapper] host time per matern52_gram call (256x256x20 float32, {calls} "
+        f"calls, no synchronise): {host_us!r} us")
+    return host_us
 
 
 def staged_fit(mt, x):
@@ -195,8 +343,9 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
-    lib = hk.build_library()
-    log(f"[build] {os.path.relpath(lib, ROOT)} in {time.perf_counter() - t0:.3f} s")
+    path = hk.build_library()
+    log(f"[build] {os.path.relpath(path, ROOT)} in {time.perf_counter() - t0:.3f} s")
+    lib = hk._library()
 
     # 3. the main path: fit, then the lazily built predictor, with the
     # kernel's launches counted and their operands kept
@@ -254,9 +403,19 @@ def main():
         raise AssertionError(f"predictor disagrees with f at the training points: {train_err}")
 
     # 4. the kernel against its plain version, on the main path's operands
-    max_err, ms, plain_ms = kernel_phase(calls)
+    max_err, rows = kernel_phase(lib, calls)
+    path_rows = [r for r in rows if r["dtype"] == "float32"]
+    ms = sum(r["ms"] * r["launches"] for r in path_rows)
+    plain_ms = sum(r["plain_ms"] * r["launches"] for r in path_rows)
+    bound_ms = sum(r["bound_ms"] * r["launches"] for r in path_rows)
+    log(f"[kernel] main path's {launches} float32 launches: kernel {ms!r} ms, plain "
+        f"{plain_ms!r} ms, bound {bound_ms!r} ms, share {bound_ms / ms!r}")
 
-    # 5. timing
+    # 5. the kernel at a large predictor batch, 6. the wrapper's host time
+    rows.append(predict_batch_phase(lib, x, est.landmarks, calls[-1][2]))
+    host_us = wrapper_host_us()
+
+    # 7. timing
     fit_times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -279,6 +438,12 @@ def main():
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path_rows) else "operations",
+        "library_ms": None,
+        "share": bound_ms / ms,
+        "wrapper_host_us": host_us,
+        "shapes": rows,
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

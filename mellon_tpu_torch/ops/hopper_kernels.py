@@ -8,7 +8,9 @@ the whitening solve, and the predictor mean's k(X*, xu).
 
 :func:`matern52_gram` takes the plain version for tensors on the CPU and
 launches the CUDA kernel for tensors on a CUDA device; there is no fallback
-from one to the other.  The kernel is compiled by ``nvcc`` from the
+from one to the other.  One call launches two kernels (a pre-pass that lays
+x and y out feature-major with their norms, into a scratch buffer the
+wrapper allocates, then the tile kernel) and counts as one launch.  The kernel is compiled by ``nvcc`` from the
 package's sources at first use, into ``build/`` beside the package, keyed by
 a hash of the sources: nothing prebuilt is shipped.
 """
@@ -32,11 +34,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# the kernel's column tiles (64 wide) lie on grid.y, at most 65535 of them
-_MAX_COLUMNS = 65535 * 64
-
 _lib = None
 _lib_lock = threading.Lock()
+# the library's entry point for each dtype, filled when it loads
+_entry = {}
 
 
 def _nvcc():
@@ -82,15 +83,19 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
             ]
             for fn in (lib.matern52_gram_f32, lib.matern52_gram_f64):
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            lib.matern52_scratch_elems.argtypes = [ctypes.c_int] * 4
+            lib.matern52_scratch_elems.restype = ctypes.c_longlong
             lib.matern52_error_string.argtypes = [ctypes.c_int]
             lib.matern52_error_string.restype = ctypes.c_char_p
+            _entry[torch.float32] = lib.matern52_gram_f32
+            _entry[torch.float64] = lib.matern52_gram_f64
             _lib = lib
         return _lib
 
@@ -137,32 +142,40 @@ def matern52_gram(x, y, ls):
     """
     ls = float(ls)
     _check_operands(x, y, ls)
-    if x.device.type == "cpu":
+    device = x.device
+    if device.type == "cpu":
         return matern52_gram_reference(x, y, ls)
-    if x.device.type != "cuda":
-        raise ValueError(f"matern52_gram runs on cpu or cuda, not {x.device}.")
+    if device.type != "cuda":
+        raise ValueError(f"matern52_gram runs on cpu or cuda, not {device}.")
     n, d = x.shape
     m = y.shape[0]
-    if max(n, d) >= 2**31 or m > _MAX_COLUMNS:
+    if max(n, m, d) >= 2**31:
         raise ValueError(
-            f"matern52_gram takes fewer than 2**31 rows of x and at most "
-            f"{_MAX_COLUMNS} rows of y, got {n} and {m}."
+            f"matern52_gram takes fewer than 2**31 rows of x and of y and "
+            f"features, got {n}, {m} and {d}."
         )
     x = x.contiguous()
     y = y.contiguous()
-    out = torch.empty((n, m), dtype=x.dtype, device=x.device)
+    # new_empty: half the host time of torch.empty(..., dtype=, device=)
+    out = x.new_empty((n, m))
     if n == 0 or m == 0:
         return out
-    lib = _library()
-    fn = lib.matern52_gram_f32 if x.dtype == torch.float32 else lib.matern52_gram_f64
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    fn = _entry.get(x.dtype)
+    if fn is None:
+        _library()
+        fn = _entry[x.dtype]
+    scratch = x.new_empty(_lib.matern52_scratch_elems(n, m, d, x.element_size()))
+    index = device.index
+    # the current stream's cudaStream_t, without building a torch.cuda.Stream
+    stream = torch._C._cuda_getCurrentRawStream(index)
     code = fn(
-        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d, ls, x.device.index, stream
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        n, m, d, ls, index, stream,
     )
     if code != 0:
         raise RuntimeError(
             "matern52_gram kernel launch failed: "
-            f"{lib.matern52_error_string(code).decode()} (cudaError {code})."
+            f"{_library().matern52_error_string(code).decode()} (cudaError {code})."
         )
     matern52_gram.launches += 1
     return out

@@ -6,12 +6,19 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 import mellon_tpu_torch
-from mellon_tpu_torch.ops.hopper_kernels import matern52_gram, matern52_gram_reference
+from mellon_tpu_torch.ops.hopper_kernels import (
+    BUILD_DIR, NVCC_FLAGS, _nvcc, matern52_gram, matern52_gram_reference,
+)
+
+ROOT = Path(__file__).resolve().parent.parent
 
 pytestmark = pytest.mark.cuda
 
@@ -25,14 +32,26 @@ def cuda():
 
 @pytest.mark.parametrize(
     "shape",
-    [(5000, 5000, 20), (8627, 2048, 20), (1000, 2048, 20), (1000, 333, 7), (65535 * 64 + 5, 3, 2)],
+    [
+        (5000, 5000, 20), (8627, 2048, 20), (1000, 2048, 20),
+        # m not a multiple of the 16-byte vector (guarded stores) and a
+        # multiple of it on a ragged row edge
+        (1000, 333, 7), (1000, 512, 20),
+        # d across the staged chunk: 1, one full chunk and more, several
+        (777, 1000, 1), (1000, 512, 50), (300, 260, 130),
+        (1, 1, 20),
+        # more row or column tiles than a grid axis of 65535 would hold
+        (65535 * 64 + 5, 3, 2), (3, 65535 * 64 + 5, 2),
+    ],
 )
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_matern52_kernel_matches_reference(cuda, shape, dtype, tol):
     """The CUDA tile vs its plain version on the card, at the benchmark
     fit's shapes (K_uu, then C and the predictor against the 2,048 kept
-    landmarks), a ragged one, and one with more row tiles than grid.y
-    could hold: f32 1e-5 (tests/test_ops.py's bar), f64 1e-12."""
+    landmarks), ragged and unaligned edges, feature counts below, at and
+    above one staged chunk, a single element, and more row or column tiles
+    than one grid axis could hold: f32 1e-5 (tests/test_ops.py's bar), f64
+    1e-12."""
     n, m, d = shape
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(n, d, device=cuda, dtype=dtype, generator=g)
@@ -42,6 +61,47 @@ def test_matern52_kernel_matches_reference(cuda, shape, dtype, tol):
     torch.cuda.synchronize()
     assert matern52_gram.launches == before + 1
     assert (K - matern52_gram_reference(x, y, 3.1)).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("n,d", [(5000, 20), (1000, 7), (333, 50), (130, 130), (257, 3), (1, 20)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_matern52_kernel_symmetric_gram(cuda, n, d, dtype, tol):
+    """k(x, x) with one buffer on both sides, as K_uu is built: the float
+    tile runs the tiles on and above the diagonal and mirrors them.  Rows
+    are scaled to |x|^2 ~ 1: on the diagonal |x|^2 - 2 x.x + |x|^2 is
+    rounding noise that grows with |x|^2, in the plain version as much as
+    in the kernel."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(n, d, device=cuda, dtype=dtype, generator=g) / d**0.5
+    K = matern52_gram(x, x, 0.7)
+    torch.cuda.synchronize()
+    assert (K - matern52_gram_reference(x, x, 0.7)).abs().max().item() <= tol
+
+
+def test_matern52_kernel_takes_noncontiguous_views(cuda):
+    """Strided and transposed views go through the wrapper's copy and give
+    the plain version's result."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(700, 40, device=cuda, generator=g)[:, ::2]
+    y = torch.randn(20, 300, device=cuda, generator=g).T
+    assert not x.is_contiguous() and not y.is_contiguous()
+    K = matern52_gram(x, y, 2.2)
+    torch.cuda.synchronize()
+    assert K.shape == (700, 300)
+    assert (K - matern52_gram_reference(x, y, 2.2)).abs().max().item() <= 1e-5
+
+
+def test_tile_sqrt_is_correctly_rounded(cuda):
+    """The tile's branch-free float sqrt equals sqrtf bit for bit on every
+    float from 1e-12 (the epilogue's floor) up: scripts/check_sqrt_rn.cu,
+    built from the kernel's own source."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    exe = BUILD_DIR / "check_sqrt_rn"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_nvcc(), *flags, "-o", str(exe), str(ROOT / "scripts" / "check_sqrt_rn.cu")],
+                   check=True)
+    run = subprocess.run([str(exe)], capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stdout + run.stderr
 
 
 def test_small_fit_on_card_matches_cpu(cuda):
