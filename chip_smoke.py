@@ -1,45 +1,71 @@
 #!/usr/bin/env python3
-"""Drive mellon_tpu_torch's density main path once on one NVIDIA GPU.
+"""Drive mellon_tpu_torch's density paths once on one NVIDIA GPU.
 
 Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printed as it runs (any failure raises and exits non-zero):
+Phases, each printed as it runs (any failure raises and exits non-zero).
+Each path (3 and 5-8) runs with the kernel's launch count set to 0 just
+before it and read just after, and fails if the kernel was not launched;
+the operands of every kernel call the covariance module makes on these
+paths are kept for phase 4.
 
 1. device: the card's name and power limit (from nvidia-smi);
 2. build: nvcc builds the Matern-5/2 kernel from csrc/ into build/;
-3. fit: DensityEstimator().fit_predict on the 8,627 x 20 benchmark cells,
-   certified against the host-float64 full-landmark fit stored in
-   benchdata/ld_ref_8627x20_f64.npz (corr >= 0.999, RMSE <= 0.01 of the
-   spread), then .predict at the training points (equal to f = Lz + mu
-   within 1e-3 of the spread) and at 1,000 perturbed points (finite).
-   The kernel's launches are counted over this run, and the operands of
-   each launch are kept;
+3. fit (the main path): DensityEstimator().fit_predict on the 8,627 x 20
+   benchmark cells, certified against the host-float64 full-landmark fit
+   stored in benchdata/ld_ref_8627x20_f64.npz (corr >= 0.999, RMSE <= 0.01
+   of the spread), then .predict at the training points (equal to
+   f = Lz + mu within 1e-3 of the spread) and at 1,000 perturbed points
+   (finite);
 4. kernel: the CUDA tile against its plain PyTorch version on the card, on
-   the operands the main path gave it (K_uu, C, the two predictor calls)
-   and at synthetic shapes (ragged and unaligned, d from 1 to 130, one
-   output element, more rows or columns than 65535 tiles of 64), in
-   float32 (max abs error <= 1e-5) and float64 (<= 1e-12).  At every
-   main-path shape, in both types, the kernel's device time (median of
-   N_RUNS runs of CUDA events around N_LAUNCHES back-to-back launches of
-   its C entry point into one output, divided by N_LAUNCHES) beside the
-   plain version's, timed the same way, and the bound: the larger of the
-   bytes over the memory rate and the flops over the peak rate;
-5. predictor batch: the kernel alone (the plain version's temporaries are
-   several times the 1.64 GB output) at PREDICT_BATCH query points
-   against the kept landmarks, float32, checked against the plain version
-   on its first and last rows;
-6. wrapper: the host time of one ``matern52_gram`` call, over 1,000 calls
-   without a synchronise;
-7. timing: the warm fit time (median of 3) and a per-stage breakdown.
+   the operands the paths gave it (K_uu, C, the predictor's mean,
+   covariance and derivative calls) and at synthetic shapes (ragged and
+   unaligned, d from 1 to 130, one output element, more rows or columns
+   than 65535 tiles of 64), in float32 (max abs error <= 1e-5) and float64
+   (<= 1e-12).  At every path shape, in both types, the kernel's device
+   time (median of N_RUNS runs of CUDA events around N_LAUNCHES
+   back-to-back launches of its C entry point into one output, divided by
+   N_LAUNCHES) beside the plain version's, timed the same way, and the
+   bound: the larger of the bytes over the memory rate and the flops over
+   the peak rate;
+   predict batch: the same in float32 at the PREDICT_BATCH-point shapes
+   (200,000 query points against the kept landmarks, both orientations),
+   checked on 2,000 rows or columns at each end, the plain version timed
+   over fewer launches (its temporaries are several times the 1.64 GB
+   output);
+5. uncertainty: DensityEstimator(predictor_with_uncertainty=True) on the
+   same cells (L-BFGS, then the diagonal Laplace approximation), certified
+   as in 3; covariance, mean_covariance and uncertainty at 1,000 perturbed
+   points and at the PREDICT_BATCH batch (finite, mean_covariance >= 0),
+   and at the 1,000 points against the same predictor state in float64
+   on the card (max |f32 - f64| <= UNCERTAINTY_F64_REL of the largest
+   float64 value);
+6. advi: DensityEstimator(optimizer="advi", predictor_with_uncertainty=True)
+   (100 steps, 40 draws each, a CUDA generator): its time, the ELBO of the
+   first and last 10 steps (the last must be higher), and its agreement
+   with the float64 reference (printed, no bar: the JAX package is held to
+   none for ADVI);
+7. derivatives: gradient, hessian and hessian_log_determinant of the main
+   path's predictor at the 1,000 points, one of them moved onto a
+   landmark, against autograd through the plain version on the card
+   (DERIV_REL of the largest value; at the landmark the gradient, and a
+   finite Hessian); the backward's device time at 1000 x 2048;
+8. json: the main path's predictor through gzip JSON and back on the card
+   (JSON_REL of the spread), and the reference Mellon's predictor
+   (tests/fixtures) in float64 against its own predictions (FIXTURE_ATOL);
+9. wrapper: the host time of one ``matern52_gram`` call, over 1,000 calls
+   without a synchronise, in turns with the call below its autograd
+   routing;
+10. timing: the warm fit time (median of 3) and a per-stage breakdown.
 
-The line before the last is the JSON kernel report (``ms``, ``plain_ms``
-and ``bound_ms``: the kernel's, the plain version's and the bound's time
-summed over the main path's launches in float32; ``shapes``: each shape
-and type with its own times and share of the bound); the last line is
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
-with status 2 and prints no result.
+The line before the last is the JSON kernel report (``launches``: over
+all paths; ``ms``, ``plain_ms`` and ``bound_ms``: the kernel's, the plain
+version's and the bound's time summed over those launches; ``shapes``:
+each shape and type with its launches, its own times and share of the
+bound); the last line is ``{"ok": true, "device": {...}}``.  Without a
+CUDA device the script exits with status 2 and prints no result.
 """
 
 import json
@@ -64,7 +90,20 @@ CERT_MAX_RMSE = 0.01
 N_LAUNCHES = 20
 N_RUNS = 7
 PREDICT_BATCH = 200_000
+# outputs of at least this many elements take the predict-batch treatment
+BIG_OUTPUT = 10**8
+BIG_PLAIN_LAUNCHES, BIG_PLAIN_RUNS = 5, 3
 DEVICE = "cuda"
+FIXTURES = os.path.join(ROOT, "tests", "fixtures")
+# bars of the new paths, each with its reason in PERF.md.  The covariance
+# k(x, x) - |L^-1 k(xu, x)|^2 is a difference of two terms near k(x, x) = 1
+# whose float32 rounding grows with cond(L): beside its own small values
+# near the data it is the loosest (CPU rehearsal, 4,000 cells and 1,024
+# kept landmarks: 0.039 for the covariance, 2.4e-4 for the others)
+UNCERTAINTY_F64_REL = {"covariance": 0.25, "mean_covariance": 1e-2, "uncertainty": 1e-2}
+DERIV_REL = 1e-3
+JSON_REL = 1e-6
+FIXTURE_ATOL = 1e-5
 
 # H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
 # peak rates outside the tensor cores
@@ -154,7 +193,7 @@ def record_operands():
     calls = []
 
     def recording(x, y, ls):
-        calls.append((x, y, float(ls)))
+        calls.append((x.detach(), y.detach(), float(ls)))
         return launch(x, y, ls)
 
     def stop():
@@ -162,6 +201,10 @@ def record_operands():
 
     kernels.matern52_gram = recording
     return calls, stop
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
 
 
 def check_kernel(x, y, ls, label):
@@ -177,7 +220,7 @@ def check_kernel(x, y, ls, label):
         K = matern52_gram(xa, ya, ls)
         torch.cuda.synchronize()
         err = (K - matern52_gram_reference(xa, ya, ls)).abs().max().item()
-        name = str(dtype).replace("torch.", "")
+        name = dtype_name(dtype)
         ok = err <= TOLERANCE[name]
         log(f"[kernel] {label} {n}x{m}x{d} {name}: max_abs_err={err!r} (tol {TOLERANCE[name]}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -189,7 +232,8 @@ def check_kernel(x, y, ls, label):
 
 def time_shape(lib, x, y, ls, launches):
     """The kernel's and the plain version's device time and the bound at
-    the operands (x, y), in float32 and float64: one report row each."""
+    the operands (x, y), in float32 and float64: one report row each;
+    ``launches`` maps a dtype's name to the paths' launches in it."""
     import torch
 
     from mellon_tpu_torch.ops.hopper_kernels import matern52_gram_reference
@@ -197,14 +241,14 @@ def time_shape(lib, x, y, ls, launches):
     rows = []
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     for dtype in (torch.float32, torch.float64):
-        name = str(dtype).replace("torch.", "")
+        name = dtype_name(dtype)
         xa, ya = x.to(dtype).contiguous(), y.to(dtype).contiguous()
         out = torch.empty((n, m), dtype=dtype, device=x.device)
         ms = device_ms(bare_launcher(lib, xa, ya, out, ls))
         plain_ms = device_ms(lambda: matern52_gram_reference(xa, ya, ls))
         bound_ms, bound_by = matern52_bound_ms(n, m, d, name)
         rows.append({"shape": f"{n}x{m}x{d}", "dtype": name,
-                     "launches": launches if dtype == x.dtype else 0,
+                     "launches": launches.get(name, 0),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "share": bound_ms / ms})
         log(f"[kernel] {n}x{m}x{d} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
@@ -215,18 +259,24 @@ def time_shape(lib, x, y, ls, launches):
 
 
 def kernel_phase(lib, calls):
-    """Kernel against plain version on every main-path call's operands and
-    at the synthetic shapes, and its times at each main-path shape; returns
-    (max float32 error over the main path, report rows)."""
+    """Kernel against plain version on every path call's operands and at
+    the synthetic shapes, and its times at each path shape; returns (max
+    float32 error over the paths' operands, report rows)."""
     import torch
 
     worst, rows, seen = 0.0, [], {}
     for x, y, ls in calls:
         shape = (x.shape[0], y.shape[0], x.shape[1])
-        seen.setdefault(shape, [x, y, ls, 0])[3] += 1
-    for x, y, ls, launches in seen.values():
-        worst = max(worst, check_kernel(x, y, ls, "main path"))
-        rows += time_shape(lib, x, y, ls, launches)
+        entry = seen.setdefault(shape, [x, y, ls, {}])
+        entry[3][dtype_name(x.dtype)] = entry[3].get(dtype_name(x.dtype), 0) + 1
+    for (n, m, d), (x, y, ls, launches) in seen.items():
+        if n * m >= BIG_OUTPUT:
+            err, row = predict_batch_phase(lib, x, y, ls, launches.get("float32", 0))
+            worst = max(worst, err)
+            rows.append(row)
+        else:
+            worst = max(worst, check_kernel(x, y, ls, "path"))
+            rows += time_shape(lib, x, y, ls, launches)
     g = torch.Generator(device=DEVICE).manual_seed(0)
     for n, m, d in SYNTHETIC_SHAPES:
         x = torch.randn(n, d, device=DEVICE, dtype=torch.float64, generator=g)
@@ -235,56 +285,253 @@ def kernel_phase(lib, calls):
     return worst, rows
 
 
-def predict_batch_phase(lib, x, landmarks, ls):
-    """The kernel alone at PREDICT_BATCH query points (the training cells,
-    perturbed) against the kept landmarks, float32: its report row."""
+def predict_batch_phase(lib, x, y, ls, launches):
+    """The kernel at a PREDICT_BATCH-point shape (query points against the
+    kept landmarks, either orientation), float32: device time, checked
+    against the plain version on 2,000 rows (or columns) at each end, the
+    plain version timed over fewer launches.  Returns (error, report row)."""
     import torch
 
     from mellon_tpu_torch.ops.hopper_kernels import matern52_gram_reference
 
-    g = torch.Generator(device=DEVICE).manual_seed(2)
-    idx = torch.randint(0, x.shape[0], (PREDICT_BATCH,), device=DEVICE, generator=g)
-    xq = (x[idx] + 0.05 * x.std(dim=0) * torch.randn(
-        PREDICT_BATCH, x.shape[1], device=DEVICE, generator=g)).contiguous()
-    y = landmarks.float().contiguous()
-    n, m, d = PREDICT_BATCH, y.shape[0], y.shape[1]
+    x, y = x.float().contiguous(), y.float().contiguous()
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
     out = torch.empty((n, m), dtype=torch.float32, device=DEVICE)
-    ms = device_ms(bare_launcher(lib, xq, y, out, ls), runs=5)
-    err = max(
-        (out[rows] - matern52_gram_reference(xq[rows], y, ls)).abs().max().item()
-        for rows in (slice(0, 2000), slice(n - 2000, n))
-    )
+    ms = device_ms(bare_launcher(lib, x, y, out, ls), runs=5)
+    if n >= m:
+        err = max((out[s] - matern52_gram_reference(x[s], y, ls)).abs().max().item()
+                  for s in (slice(0, 2000), slice(n - 2000, n)))
+    else:
+        err = max((out[:, s] - matern52_gram_reference(x, y[s], ls)).abs().max().item()
+                  for s in (slice(0, 2000), slice(m - 2000, m)))
     if not err <= TOLERANCE["float32"]:
         raise AssertionError(f"matern52 kernel disagrees at the predictor batch: {err}")
+    del out
+    plain_ms = device_ms(lambda: matern52_gram_reference(x, y, ls),
+                         launches=BIG_PLAIN_LAUNCHES, runs=BIG_PLAIN_RUNS)
     bound_ms, bound_by = matern52_bound_ms(n, m, d, "float32")
-    log(f"[predict batch] {n}x{m}x{d} float32: kernel {ms!r} ms, bound {bound_ms!r} ms "
-        f"({bound_by}), share {bound_ms / ms!r}; {out.numel() * 4 / 1e9!r} GB written; "
-        f"max_abs_err on 4000 rows {err!r}")
-    return {"shape": f"{n}x{m}x{d}", "dtype": "float32", "launches": 0, "ms": ms,
-            "plain_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
-            "share": bound_ms / ms}
+    log(f"[predict batch] {n}x{m}x{d} float32: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+        f"bound {bound_ms!r} ms ({bound_by}), share {bound_ms / ms!r}; "
+        f"{n * m * 4 / 1e9!r} GB written; max_abs_err on 4000 {'rows' if n >= m else 'columns'} "
+        f"{err!r}")
+    return err, {"shape": f"{n}x{m}x{d}", "dtype": "float32", "launches": launches, "ms": ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "share": bound_ms / ms}
 
 
-def wrapper_host_us(calls=1000):
-    """Host time of one ``matern52_gram`` call (checks, allocation, the
-    ctypes call and the launch): a host clock over ``calls`` calls without
-    a synchronise, at a shape whose kernel is shorter than that."""
+def counted_path(hk, label, fn):
+    """``fn()`` with the kernel's launch count set to 0 just before it and
+    read just after; fails if the path launched the kernel no time.
+    Returns (fn's result, launches)."""
     import torch
 
-    from mellon_tpu_torch.ops.hopper_kernels import matern52_gram
+    torch.cuda.synchronize()
+    hk.matern52_gram.launches = 0
+    result = fn()
+    torch.cuda.synchronize()
+    launches = hk.matern52_gram.launches
+    log(f"[{label}] kernel launches in this path: {launches}")
+    if launches <= 0:
+        raise AssertionError(f"the {label} path launched the matern52 kernel no time")
+    return result, launches
+
+
+def certificate(ld, ld_ref):
+    """(corr, RMSE / spread) of a log density against the float64 reference."""
+    import numpy as np
+
+    ld = ld.double().cpu().numpy()
+    corr = float(np.corrcoef(ld, ld_ref)[0, 1])
+    rmse = float(np.sqrt(np.mean((ld - ld_ref) ** 2))) / float(ld_ref.max() - ld_ref.min())
+    return corr, rmse
+
+
+def synced_seconds(fn):
+    """(fn's result, host seconds around it, ending in a synchronise)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, time.perf_counter() - t0
+
+
+def relative_gap(got, want):
+    """max |got - want| over max |want|."""
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def uncertainty_path(mt, x_np, x_new, xq, ld_ref):
+    """Fit with Laplace uncertainty, certify it, and evaluate the
+    predictor's covariance surface at 1,000 and PREDICT_BATCH points, the
+    1,000 also in float64; returns the estimator."""
+    import torch
+
+    from mellon_tpu_torch.inference.laplace import compute_laplace_std
+
+    est = mt.DensityEstimator(predictor_with_uncertainty=True, device=DEVICE)
+    ld, fit_s = synced_seconds(lambda: est.fit_predict(x_np))
+    corr, rmse = certificate(ld, ld_ref)
+    std = est.pre_transformation_std
+    _, laplace_s = synced_seconds(
+        lambda: compute_laplace_std(est._hessian_diagonal(est.pre_transformation)))
+    log(f"[uncertainty] fit with Laplace {fit_s:.3f} s; Laplace alone (again, on the same "
+        f"MAP) {laplace_s!r} s; std range [{std.min().item()!r}, {std.max().item()!r}]; "
+        f"certificate corr {corr!r}, RMSE/spread {rmse!r}")
+    if not (corr >= CERT_MIN_CORR and rmse <= CERT_MAX_RMSE and bool(torch.isfinite(std).all())):
+        raise AssertionError(f"uncertainty fit failed: corr {corr}, RMSE/spread {rmse}")
+    pred = est.predict
+    methods = ("covariance", "mean_covariance", "uncertainty")
+    for points, label in ((x_new, "1000 points"), (xq, f"{xq.shape[0]} points")):
+        times = {}
+        for method in methods:
+            getattr(pred, method)(points)  # first call: allocator warm-up
+            out, times[method] = synced_seconds(lambda: getattr(pred, method)(points))
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{method} at {label} is not finite")
+            if method == "mean_covariance" and not bool((out >= 0).all()):
+                raise AssertionError(f"mean_covariance at {label} is negative")
+        log(f"[uncertainty] {label}: seconds " + json.dumps(times))
+    p64 = mt.LandmarksConditionalCholesky.from_state(
+        pred.landmarks.double(), pred.weights.double(), pred.mu, pred.cov_func,
+        n_obs=pred.n_obs, jitter=pred.jitter, sigma=pred.sigma.double(),
+        L=pred.L.double(), W=pred.W.double(),
+    )
+    gaps, scale = {}, {}
+    for m in methods:
+        want = getattr(p64, m)(x_new.double())
+        gaps[m] = relative_gap(getattr(pred, m)(x_new), want)
+        scale[m] = want.abs().max().item()
+    log(f"[uncertainty] float32 vs the same state in float64 at 1000 points, max |diff| / "
+        f"max |f64|: {json.dumps(gaps)} (bars {json.dumps(UNCERTAINTY_F64_REL)}); "
+        f"max |f64|: {json.dumps(scale)}")
+    if not all(gaps[m] <= UNCERTAINTY_F64_REL[m] for m in methods):
+        raise AssertionError(f"float32 uncertainty disagrees with float64: {gaps}")
+    return est
+
+
+def advi_path(mt, x_np, ld_ref):
+    """ADVI with uncertainty at the bench shape."""
+    import torch
+
+    est = mt.DensityEstimator(optimizer="advi", predictor_with_uncertainty=True, device=DEVICE)
+    ld, fit_s = synced_seconds(lambda: est.fit_predict(x_np))
+    elbo = -est.losses
+    first, last = elbo[:10].mean().item(), elbo[-10:].mean().item()
+    corr, rmse = certificate(ld, ld_ref)
+    log(f"[advi] fit {fit_s:.3f} s ({est.n_iter} steps, 40 draws each); mean ELBO of the "
+        f"first 10 steps {first!r}, of the last 10 {last!r}; vs the float64 reference "
+        f"corr {corr!r}, RMSE/spread {rmse!r}")
+    finite = all(bool(torch.isfinite(t).all()) for t in (ld, elbo, est.pre_transformation_std))
+    if not (finite and last > first):
+        raise AssertionError(f"ADVI failed: finite {finite}, ELBO {first} -> {last}")
+
+
+def derivatives_path(pred, x_new):
+    """The predictor's derivatives at the 1,000 points, the first moved
+    onto a landmark; returns them with the points."""
+    X = x_new.clone()
+    X[0] = pred.landmarks[7]
+    out = {}
+    for method in ("gradient", "hessian", "hessian_log_determinant"):
+        getattr(pred, method)(X)  # first call: library and allocator warm-up
+        out[method], seconds = synced_seconds(lambda: getattr(pred, method)(X))
+        log(f"[derivatives] {method} at {X.shape[0]} points: {seconds!r} s")
+    return X, out
+
+
+def check_derivatives(pred, X, out):
+    """The derivatives against autograd through the plain version, and the
+    backward's device time at the predictor's shape."""
+    import torch
+
+    from mellon_tpu_torch.inference.derivatives import gradient, hessian
+    from mellon_tpu_torch.ops.hopper_kernels import (
+        matern52_gram_backward, matern52_gram_reference)
+
+    ls = pred.cov_func.ls
+
+    def plain_mean(z):
+        return pred.mu + matern52_gram_reference(z, pred.landmarks, ls) @ pred.weights
+
+    g_ref, H_ref = gradient(plain_mean, X), hessian(plain_mean, X)
+    sign_ref, logdet_ref = torch.linalg.slogdet(H_ref[1:])
+    sign, logdet = out["hessian_log_determinant"]
+    same = sign[1:] == sign_ref
+    gaps = {
+        "gradient": relative_gap(out["gradient"], g_ref),
+        "gradient at the landmark": relative_gap(out["gradient"][0], g_ref[0]),
+        "hessian": relative_gap(out["hessian"][1:], H_ref[1:]),
+        "logdet": float((logdet[1:][same] - logdet_ref[same]).abs().max()),
+    }
+    log(f"[derivatives] vs autograd through the plain version, max |diff| / max |plain|: "
+        f"{json.dumps(gaps)} (bar {DERIV_REL}; logdet absolute, printed); signs of det "
+        f"equal at {int(same.sum())} of {same.numel()}; Hessian at the landmark finite: "
+        f"{bool(torch.isfinite(out['hessian'][0]).all())}")
+    if not (max(gaps["gradient"], gaps["gradient at the landmark"], gaps["hessian"]) <= DERIV_REL
+            and bool(torch.isfinite(out["hessian"][0]).all())):
+        raise AssertionError(f"derivatives disagree with the plain version: {gaps}")
+    grad_out = pred.weights.expand(X.shape[0], -1)
+    ms = device_ms(lambda: matern52_gram_backward(grad_out, X, pred.landmarks, ls, (True, False)))
+    log(f"[derivatives] backward (plain torch) at {X.shape[0]}x{pred.landmarks.shape[0]}x"
+        f"{X.shape[1]} float32: {ms!r} ms (median of {N_RUNS} runs of {N_LAUNCHES} calls)")
+    return gaps, ms
+
+
+def json_path(mt, pred, x_new):
+    """The predictor through gzip JSON and back on the card, and the
+    reference Mellon's predictor in float64."""
+    import numpy as np
+    import torch
+
+    path = os.path.join(ROOT, "build", "chip_smoke_predictor.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    pred.to_json(path, compress="gzip")
+    back = mt.Predictor.from_json(path + ".gz")
+    want = pred(x_new)
+    gap = float((back(x_new) - want).abs().max() / (want.max() - want.min()))
+    data = np.load(os.path.join(FIXTURES, "reference_fixture_data.npz"))
+    ref = mt.Predictor.from_json(os.path.join(FIXTURES, "reference_density_predictor.json.gz"),
+                                 dtype=torch.float64)
+    fix = max(float(np.abs(ref(data["x"]).cpu().numpy() - data["de_pred"]).max()),
+              float(np.abs(ref(data["x"], normalize=True).cpu().numpy() - data["de_pred_norm"]).max()))
+    log(f"[json] gzip round trip on {back.device} {back.dtype}: max |diff| / spread {gap!r} "
+        f"(bar {JSON_REL}); the reference Mellon's predictor on {ref.device} float64: "
+        f"max |diff| from its own predictions {fix!r} (bar {FIXTURE_ATOL})")
+    if not (back.device == pred.device and gap <= JSON_REL and fix <= FIXTURE_ATOL):
+        raise AssertionError(f"JSON round trip {gap}, reference predictor {fix}")
+
+
+def wrapper_host_us(calls=1000, turns=4):
+    """Host time of one ``matern52_gram`` call (checks, allocation, the
+    ctypes call and the launch): a host clock over ``calls`` calls without
+    a synchronise, at a shape whose kernel is shorter than that; the median
+    of ``turns`` turns, taken in turns with the call below the autograd
+    routing (``_matern52_gram``), whose time is printed beside it."""
+    import torch
+
+    from mellon_tpu_torch.ops import hopper_kernels as hk
 
     g = torch.Generator(device=DEVICE).manual_seed(3)
     x = torch.randn(256, 20, device=DEVICE, generator=g)
-    for _ in range(10):
-        matern52_gram(x, x, 2.5)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        matern52_gram(x, x, 2.5)
-    host_us = 1e6 * (time.perf_counter() - t0) / calls
-    torch.cuda.synchronize()
+    times = {"matern52_gram": [], "_matern52_gram": []}
+    for turn in range(2 * turns):
+        name = ("matern52_gram", "_matern52_gram")[(turn + turn // 2) % 2]
+        fn = getattr(hk, name)
+        for _ in range(10):
+            fn(x, x, 2.5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(x, x, 2.5)
+        times[name].append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    host_us = statistics.median(times["matern52_gram"])
     log(f"[wrapper] host time per matern52_gram call (256x256x20 float32, {calls} "
-        f"calls, no synchronise): {host_us!r} us")
+        f"calls, no synchronise, median of {turns} turns): {host_us!r} us; below the "
+        f"autograd routing: {statistics.median(times['_matern52_gram'])!r} us; "
+        f"turns {json.dumps(times)}")
     return host_us
 
 
@@ -351,10 +598,15 @@ def main():
     # kernel's launches counted and their operands kept
     ref = np.load(DATA)
     x_np = np.asarray(ref["x"], dtype=np.float32)
+    ld_ref = np.asarray(ref["log_density"], dtype=np.float64)
     x = torch.as_tensor(x_np, device=DEVICE)
     x_new = x[:1000] + 0.01 * x.std(dim=0) * torch.randn(
         1000, x.shape[1], device=DEVICE, generator=torch.Generator(device=DEVICE).manual_seed(1)
     )
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    idx = torch.randint(0, x.shape[0], (PREDICT_BATCH,), device=DEVICE, generator=g)
+    xq = (x[idx] + 0.05 * x.std(dim=0) * torch.randn(
+        PREDICT_BATCH, x.shape[1], device=DEVICE, generator=g)).contiguous()
     calls, stop_recording = record_operands()
     hk.matern52_gram.launches = 0
     torch.cuda.synchronize()
@@ -369,7 +621,6 @@ def main():
     at_new = pred(x_new)
     torch.cuda.synchronize()
     launches = hk.matern52_gram.launches
-    stop_recording()
 
     if ld.shape != (x_np.shape[0],) or not bool(torch.isfinite(ld).all()):
         raise AssertionError("the fit's log density is not finite or has the wrong shape")
@@ -381,11 +632,7 @@ def main():
     if len(calls) != launches:
         raise AssertionError(f"{len(calls)} kernel calls were made but {launches} launched")
     n_kept = int(est.landmarks.shape[0])
-    ld_np = ld.double().cpu().numpy()
-    ld_ref = np.asarray(ref["log_density"], dtype=np.float64)
-    corr = float(np.corrcoef(ld_np, ld_ref)[0, 1])
-    spread = float(ld_ref.max() - ld_ref.min())
-    rmse = float(np.sqrt(np.mean((ld_np - ld_ref) ** 2))) / spread
+    corr, rmse = certificate(ld, ld_ref)
     log(f"[fit] first fit {first_fit_s:.3f} s; kernel launches in the fit: {fit_launches}")
     log(f"[fit] landmarks kept {n_kept} of 5000 (power of two: {n_kept & (n_kept - 1) == 0}); "
         f"L-BFGS {est.opt_state.n_steps} steps, {est.opt_state.n_evals} evaluations "
@@ -401,21 +648,35 @@ def main():
         + ", ".join(f"{a.shape[0]}x{b.shape[0]}x{a.shape[1]}" for a, b, _ in calls))
     if not (train_err <= 1e-3 and bool(torch.isfinite(at_train).all()) and bool(torch.isfinite(at_new).all())):
         raise AssertionError(f"predictor disagrees with f at the training points: {train_err}")
+    path_launches = {"main": launches}
 
-    # 4. the kernel against its plain version, on the main path's operands
+    # 5-8. the paths of the predictor's uncertainty, ADVI, derivatives and
+    # JSON, each with its own launch count
+    _, path_launches["uncertainty"] = counted_path(
+        hk, "uncertainty", lambda: uncertainty_path(mt, x_np, x_new, xq, ld_ref))
+    _, path_launches["advi"] = counted_path(hk, "advi", lambda: advi_path(mt, x_np, ld_ref))
+    (X, derivs), path_launches["derivatives"] = counted_path(
+        hk, "derivatives", lambda: derivatives_path(pred, x_new))
+    check_derivatives(pred, X, derivs)
+    _, path_launches["json"] = counted_path(hk, "json", lambda: json_path(mt, pred, x_new))
+    stop_recording()
+    launches = sum(path_launches.values())
+    if len(calls) != launches:
+        raise AssertionError(f"{len(calls)} kernel calls were made but {launches} launched")
+    log(f"[paths] kernel launches: {json.dumps(path_launches)}")
+
+    # 4. the kernel against its plain version, on the paths' operands
     max_err, rows = kernel_phase(lib, calls)
-    path_rows = [r for r in rows if r["dtype"] == "float32"]
-    ms = sum(r["ms"] * r["launches"] for r in path_rows)
-    plain_ms = sum(r["plain_ms"] * r["launches"] for r in path_rows)
-    bound_ms = sum(r["bound_ms"] * r["launches"] for r in path_rows)
-    log(f"[kernel] main path's {launches} float32 launches: kernel {ms!r} ms, plain "
+    ms = sum(r["ms"] * r["launches"] for r in rows)
+    plain_ms = sum(r["plain_ms"] * r["launches"] for r in rows)
+    bound_ms = sum(r["bound_ms"] * r["launches"] for r in rows)
+    log(f"[kernel] the paths' {launches} launches: kernel {ms!r} ms, plain "
         f"{plain_ms!r} ms, bound {bound_ms!r} ms, share {bound_ms / ms!r}")
 
-    # 5. the kernel at a large predictor batch, 6. the wrapper's host time
-    rows.append(predict_batch_phase(lib, x, est.landmarks, calls[-1][2]))
+    # 9. the wrapper's host time
     host_us = wrapper_host_us()
 
-    # 7. timing
+    # 10. timing
     fit_times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -439,7 +700,7 @@ def main():
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in path_rows) else "operations",
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows if r["launches"]) else "operations",
         "library_ms": None,
         "share": bound_ms / ms,
         "wrapper_host_us": host_us,

@@ -1,10 +1,12 @@
-"""mellon_tpu_torch: the density main path of mellon_tpu in PyTorch and CUDA.
+"""mellon_tpu_torch: the density estimator of mellon_tpu in PyTorch and CUDA.
 
 A port of ``mellon_tpu`` (JAX, TPU) to PyTorch on an NVIDIA H100.  It runs
-``DensityEstimator().fit_predict(x)`` and ``.predict(x_new)``; the
-Matern-5/2 covariance tile is a hand-written CUDA kernel for ``sm_90a``
-(``csrc/matern52_tile.cu``), built from source at first use.  Importing the
-package turns TF32 off (see :mod:`.config`).
+``DensityEstimator(...).fit(x)`` with L-BFGS, adam or ADVI and the
+optional diagonal Laplace uncertainty, and its predictor: the mean, its
+covariance and uncertainty, gradient and Hessian, and JSON in the format
+mellon_tpu reads.  The Matern-5/2 covariance tile is a hand-written CUDA
+kernel for ``sm_90a`` (``csrc/matern52_tile.cu``), built from source at
+first use.  Importing the package turns TF32 off (see :mod:`.config`).
 """
 
 from . import config
@@ -24,7 +26,10 @@ from .ops.kernels import (
 )
 from .utils.util import GaussianProcessType
 
+__version__ = "0.3.0"
+
 __all__ = [
+    "__version__",
     "config",
     "DEFAULT_DEVICE",
     "DEFAULT_DTYPE",

@@ -9,7 +9,9 @@ The loss is the negative log posterior of z with f = L z + μ:
 where V and Vdr are the 1-NN likelihood constants and c the optional
 ``loss_offset_per_term``.  Autodiff is not needed: the gradient reads L
 once more, as a transposed matrix-vector product (a fused one-pass
-value-and-grad kernel is ROADMAP kernel K4).
+value-and-grad kernel is ROADMAP kernel K4).  The same closed form gives
+the Hessian's diagonal for the Laplace approximation; ADVI evaluates the
+loss at a batch of latent vectors at once.
 """
 
 import math
@@ -49,6 +51,43 @@ def make_density_value_and_grad(L, nn_distances, d, mu, loss_offset_per_term=0.0
         return _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term)
 
     return value_and_grad
+
+
+def make_density_loss_batch(L, nn_distances, d, mu):
+    """``Z -> losses``: the density loss at each row of Z (S, k), shape
+    (S,).  The S latent vectors go through L as one (n, k)×(k, S) product,
+    F = L Zᵀ + μ; autograd gives the gradient (ADVI's sampled ELBO)."""
+    V, Vdr = nearest_neighbors_terms(nn_distances, d)
+
+    def loss_batch(Z):
+        k = Z.shape[1]
+        F = L @ Z.T + mu
+        prior = -(1 / 2) * torch.sum(Z * Z, dim=1) - (k / 2) * math.log(2 * math.pi)
+        likelihood = torch.sum((F + Vdr[:, None]) - torch.exp(F + V[:, None]), dim=0)
+        return -(prior + likelihood)
+
+    return loss_batch
+
+
+# rows of L per step of the Hessian diagonal: bounds its (rows, k) temporary
+HESSIAN_CHUNK_ROWS = 4096
+
+
+def density_hessian_diagonal(z, L, nn_distances, d, mu):
+    """Diagonal of the density loss's Hessian at z in closed form.
+
+    The Hessian is I + Lᵀ·diag(e^{Lz+μ+V})·L, so its diagonal is
+    1 + Σᵢ eᵢ·Lᵢⱼ².  It accumulates over :data:`HESSIAN_CHUNK_ROWS` rows
+    of L at a time: the JAX package gets the same numbers from chunked
+    Hessian-vector products (``mellon_tpu/inference/laplace.py``).
+    """
+    V, _ = nearest_neighbors_terms(nn_distances, d)
+    diag = torch.ones_like(z)
+    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
+        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
+        diag = diag + e @ (rows * rows)
+    return diag
 
 
 def compute_transform(mu, L):

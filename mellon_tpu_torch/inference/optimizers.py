@@ -1,4 +1,8 @@
-"""L-BFGS for the MAP fit (counterpart of ``mellon_tpu/inference/optimizers.py``).
+"""L-BFGS and adam for the MAP fit (counterpart of
+``mellon_tpu/inference/optimizers.py``).
+
+adam (:func:`minimize_adam`) follows ``optax.adam`` with the JAX package's
+schedule; its update is :func:`adam_step`, which ADVI reuses.
 
 The JAX package runs ``optax.lbfgs`` inside one ``lax.while_loop``.  This
 is the same method written for PyTorch: memory 10, the two-loop recursion
@@ -39,7 +43,16 @@ SLOPE_RTOL = 1e-4  # c1, sufficient decrease
 CURV_RTOL = 0.9  # c2, strong curvature
 APPROX_DEC_RTOL = 1e-6  # approximate-decrease slack, relative to |loss|
 
+DEFAULT_N_ITER = 100
+DEFAULT_INIT_LEARN_RATE = 1e-1
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8  # added outside the square root, as optax's eps
+LEARN_RATE_DECAY = 1e-2  # the rate at step i is exp(-0.01 i)·lr0
+
 LBFGSResult = namedtuple("LBFGSResult", "pre_transformation loss n_steps n_evals")
+AdamResult = namedtuple("AdamResult", "pre_transformation opt_state losses")
+AdamState = namedtuple("AdamState", "count mu nu")
 _Trial = namedtuple("_Trial", "step phi dphi gnorm z value grad")
 
 
@@ -214,3 +227,48 @@ def minimize_lbfgs(
         count += 1
     logger.info("L-BFGS finished after %d steps with loss %.6g.", count, phi)
     return LBFGSResult(z, phi, count, n_evals)
+
+
+def adam_init(params):
+    """adam's state for a tuple of parameter tensors."""
+    zeros = tuple(torch.zeros_like(p) for p in params)
+    return AdamState(0, zeros, zeros)
+
+
+def adam_step(params, grads, state, init_learn_rate):
+    """One ``optax.adam`` step (β₁ 0.9, β₂ 0.999, ε 1e-8 outside the root,
+    bias correction) on a tuple of tensors, at the learning rate
+    exp(−0.01·i)·lr0 of the step count i before this step (0 on the first).
+    Returns ``(params, state)``; the count stays on the host."""
+    rate = math.exp(-LEARN_RATE_DECAY * state.count) * init_learn_rate
+    count = state.count + 1
+    new_params, mus, nus = [], [], []
+    for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
+        mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+        nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+        mu_hat = mu / (1 - ADAM_B1**count)
+        nu_hat = nu / (1 - ADAM_B2**count)
+        new_params.append(p - rate * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)))
+        mus.append(mu)
+        nus.append(nu)
+    return tuple(new_params), AdamState(count, tuple(mus), tuple(nus))
+
+
+def minimize_adam(
+    value_and_grad,
+    initial_value,
+    n_iter=DEFAULT_N_ITER,
+    init_learn_rate=DEFAULT_INIT_LEARN_RATE,
+):
+    """``n_iter`` adam steps on ``value_and_grad(z) -> (loss, grad)`` from
+    ``initial_value``.  Nothing is read on the host: the losses before each
+    step come back as one tensor."""
+    params = (initial_value.clone(),)
+    state = adam_init(params)
+    losses = []
+    for _ in range(int(n_iter)):
+        value, grad = value_and_grad(params[0])
+        losses.append(value)
+        params, state = adam_step(params, (grad,), state, init_learn_rate)
+    losses = torch.stack(losses) if losses else initial_value.new_empty(0)
+    return AdamResult(params[0], state, losses)

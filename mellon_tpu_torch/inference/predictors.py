@@ -1,23 +1,58 @@
-"""Predictor facade (counterpart of ``mellon_tpu/inference/predictors.py``).
+"""Predictor facade (counterpart of ``mellon_tpu/inference/predictors.py``):
+the conditional mean, its covariance and uncertainty, derivatives, and JSON
+in the format that the JAX package and the reference Mellon read.
 
-Only the conditional mean is ported; uncertainty, derivatives and JSON
-I/O come with ROADMAP Queue 1, items 9 and 11.
+A predictor written by mellon_tpu or the reference loads here, and one
+written here loads there: arrays are tagged ``"jax.numpy"``, classes are
+resolved by name first, and files of the reference Mellon older than 1.4.0
+are migrated as the JAX package migrates them.  The JSON carries no dtype:
+a loaded predictor lands on ``config.DEFAULT_DEVICE`` in
+``config.DEFAULT_DTYPE`` unless ``device=``/``dtype=`` say otherwise.
 """
 
+import bz2
+import gzip
+import json
 import logging
 import math
+import re
+import sys
 from abc import ABC, abstractmethod
+from datetime import datetime
+from importlib import import_module
 
 import torch
 
-from ..utils.util import ensure_2d
+from ..config import resolve_device_dtype
+from ..ops.kernels import FOREIGN_PACKAGES, Covariance
+from ..utils.util import deserialize, ensure_2d, make_serializable
 from ..utils.validation import validate_array, validate_bool
+from .derivatives import gradient, hessian, hessian_log_determinant
 
 logger = logging.getLogger("mellon_tpu_torch")
 
 # queries larger than this evaluate in row chunks so the (n_query, m)
 # kernel tile stays memory-bounded
 PREDICT_CHUNK_SIZE = 200_000
+# files of the reference Mellon older than this lack n_obs and
+# _state_variables
+MIGRATION_VERSION = (1, 4, 0)
+_FUNCTION_ESTIMATOR = (
+    "not ported to mellon_tpu_torch yet (ROADMAP Queue 1, item 12: the "
+    "FunctionEstimator)."
+)
+
+
+def _chunked_rows(fn, x, chunk_size=PREDICT_CHUNK_SIZE):
+    if x.shape[0] <= chunk_size:
+        return fn(x)
+    return torch.cat([fn(x[s : s + chunk_size]) for s in range(0, x.shape[0], chunk_size)])
+
+
+def _release(version):
+    """The leading release numbers of a version string, e.g. (1, 7, 1)."""
+    match = re.match(r"\s*v?(\d+(?:\.\d+)*)", str(version))
+    return tuple(int(p) for p in match.group(1).split(".")) if match else None
 
 
 class Predictor(ABC):
@@ -30,6 +65,14 @@ class Predictor(ABC):
 
     @abstractmethod
     def _mean(self, x):
+        ...
+
+    @abstractmethod
+    def _covariance(self, x, diag=True):
+        ...
+
+    @abstractmethod
+    def _mean_covariance(self, x, diag=True):
         ...
 
     @property
@@ -49,10 +92,8 @@ class Predictor(ABC):
             f"with {self.n_input_features:,} features."
         )
 
-    def mean(self, x, normalize=False):
-        """Conditional mean at x, optionally normalized by log(n_obs)."""
+    def _validate(self, x):
         x = ensure_2d(validate_array(x, "x", dtype=self.dtype, device=self.device))
-        normalize = validate_bool(normalize, "normalize")
         if x.shape[1] != self.n_input_features:
             raise ValueError(
                 f"The predictor was trained on data with {self.n_input_features} "
@@ -60,9 +101,13 @@ class Predictor(ABC):
                 "features. Please ensure that the input data has the same number "
                 "of features as the training data."
             )
-        out = torch.cat(
-            [self._mean(x[s : s + PREDICT_CHUNK_SIZE]) for s in range(0, x.shape[0], PREDICT_CHUNK_SIZE)]
-        )
+        return x
+
+    def mean(self, x, normalize=False):
+        """Conditional mean at x, optionally normalized by log(n_obs)."""
+        x = self._validate(x)
+        normalize = validate_bool(normalize, "normalize")
+        out = _chunked_rows(self._mean, x)
         if not normalize:
             return out
         if not self.n_obs:
@@ -75,3 +120,196 @@ class Predictor(ABC):
         return out - math.log(self.n_obs)
 
     __call__ = mean
+
+    def covariance(self, x, diag=True, noise_free=False):
+        """Posterior covariance of the conditional GP at x: its diagonal,
+        shape (n,), or the (n, n) matrix."""
+        if getattr(self, "per_feature_sigma", False) and not noise_free:
+            raise ValueError(
+                "This predictor was fitted with per-feature sigma, so the "
+                "covariance is noise-free (sigma=0) and does not include "
+                "observation noise. Pass noise_free=True to acknowledge this "
+                "and obtain the noise-free covariance, then account for "
+                "observation noise separately (e.g., via obs_variance)."
+            )
+        x = self._validate(x)
+        if diag:
+            return _chunked_rows(lambda b: self._covariance(b, diag=True), x)
+        return self._covariance(x, diag=False)
+
+    def mean_covariance(self, x, diag=True):
+        """Covariance of the mean from the latents' uncertainty."""
+        x = self._validate(x)
+        if diag:
+            return _chunked_rows(lambda b: self._mean_covariance(b, diag=True), x)
+        return self._mean_covariance(x, diag=False)
+
+    def uncertainty(self, x, diag=True):
+        """Total predictive uncertainty: covariance + mean_covariance."""
+        x = self._validate(x)
+        if diag:
+            return _chunked_rows(
+                lambda b: self._covariance(b, diag=True) + self._mean_covariance(b, diag=True), x
+            )
+        return self._covariance(x, diag=False) + self._mean_covariance(x, diag=False)
+
+    def leverage(self, x):
+        raise NotImplementedError(f"leverage is {_FUNCTION_ESTIMATOR}")
+
+    def loo_residuals_squared(self, x, y):
+        raise NotImplementedError(f"loo_residuals_squared is {_FUNCTION_ESTIMATOR}")
+
+    def obs_variance(self, x):
+        raise NotImplementedError(f"obs_variance is {_FUNCTION_ESTIMATOR}")
+
+    def gradient(self, x, jit=True):
+        """Gradient of the mean at each row of x, shape (n, d).  ``jit`` is
+        accepted for the JAX package's signature and ignored."""
+        return gradient(self._mean, self._validate(x))
+
+    def hessian(self, x, jit=True):
+        """Hessian of the mean at each row of x, shape (n, d, d)."""
+        return hessian(self.__call__, self._validate(x))
+
+    def hessian_log_determinant(self, x, jit=True):
+        """``(sign, log|det|)`` of the Hessian at each row of x."""
+        return hessian_log_determinant(self.__call__, self._validate(x))
+
+    # -- serialization ------------------------------------------------------
+
+    def _data_dict(self):
+        return {key: getattr(self, key) for key in self._state_variables}
+
+    def __getstate__(self):
+        module_name = self.__class__.__module__
+        try:
+            version = getattr(import_module(module_name.split(".")[0]), "__version__", "NA")
+        except ImportError:
+            version = "NA"
+        data = self._data_dict()
+        data.update(
+            {
+                "n_input_features": self.n_input_features,
+                "n_obs": self.n_obs,
+                "d": self.d,
+                "d_method": self.d_method,
+                "_state_variables": self._state_variables,
+            }
+        )
+        return {
+            "data": {k: make_serializable(v) for k, v in data.items()},
+            "cov_func": self.cov_func.__getstate__(),
+            "metadata": {
+                "classname": self.__class__.__name__,
+                "module_name": module_name,
+                "module_version": version,
+                "serialization_date": datetime.now().isoformat(),
+                "python_version": sys.version,
+            },
+        }
+
+    def __setstate__(self, state, device=None, dtype=None):
+        device, dtype = resolve_device_dtype(device, dtype)
+        for name, value in state["data"].items():
+            setattr(self, name, deserialize(value, device, dtype))
+        self.cov_func = Covariance.from_dict(state["cov_func"])
+
+    def copy(self):
+        """A deep copy through serialization, on the same device and dtype."""
+        new_instance = self.__class__.__new__(self.__class__)
+        new_instance.__setstate__(self.__getstate__(), self.device, self.dtype)
+        return new_instance
+
+    def to_json(self, filename=None, compress=None):
+        """The JSON string, or a file of it (``compress`` None, "gzip" or
+        "bz2", which add ".gz" or ".bz2" to a name that lacks it)."""
+        json_str = json.dumps(self.to_dict())
+        if filename is None:
+            return json_str
+        if compress == "gzip":
+            if isinstance(filename, str) and not filename.endswith(".gz"):
+                filename += ".gz"
+            open_func = gzip.open
+        elif compress == "bz2":
+            if isinstance(filename, str) and not filename.endswith(".bz2"):
+                filename += ".bz2"
+            open_func = bz2.open
+        elif compress is None:
+            open_func = open
+        else:
+            message = (
+                f"Unknown compression format {compress}.\n"
+                'Availabe formats are "gzip", "bz2" and None.'
+            )
+            logger.error(message)
+            raise ValueError(message)
+        with open_func(filename, "wt") as f:
+            f.write(json_str)
+        logger.info(f"Written predictor to {filename}.")
+
+    def to_dict(self):
+        return self.__getstate__()
+
+    @classmethod
+    def from_json(cls, filepath, compress=None, device=None, dtype=None):
+        """A predictor from a JSON file; ".gz" and ".bz2" names (or
+        ``compress``) are decompressed."""
+        filename = str(filepath)
+        if compress == "gzip" or filename.endswith(".gz"):
+            open_func = gzip.open
+        elif compress == "bz2" or filename.endswith(".bz2"):
+            open_func = bz2.open
+        else:
+            open_func = open
+        with open_func(filepath, "rt") as f:
+            return cls.from_json_str(f.read(), device=device, dtype=dtype)
+
+    @classmethod
+    def from_dict(cls, data_dict, device=None, dtype=None):
+        """A predictor from its dict, with the reference's <1.4.0 migration
+        for files it wrote (module names ``mellon.*``)."""
+        metadata = data_dict["metadata"]
+        clsname = metadata["classname"]
+        module_name = metadata["module_name"]
+        release = _release(metadata["module_version"])
+        if module_name.split(".")[0] == "mellon" and release and release < MIGRATION_VERSION:
+            logger.warning(
+                f"Loading a predictor written by version {metadata['module_version']} "
+                "< 1.4.0. Please set predictor.n_obs to enable normalization."
+            )
+            if module_name.endswith(".conditional"):
+                clsname = clsname.replace("ConditionalMean", "Conditional")
+            data = data_dict["data"]
+            data["n_obs"] = data.get("n_obs", None)
+            data["_state_variables"] = data.get(
+                "_state_variables", set(data.keys()) - {"n_input_features"}
+            )
+        Subclass = _resolve_predictor_class(clsname, module_name)
+        instance = Subclass.__new__(Subclass)
+        instance.__setstate__(data_dict, device, dtype)
+        return instance
+
+    @classmethod
+    def from_json_str(cls, json_str, device=None, dtype=None):
+        return cls.from_dict(json.loads(json_str), device=device, dtype=dtype)
+
+
+def _resolve_predictor_class(clsname, module_name):
+    """A predictor class by name first (files of mellon_tpu and of the
+    reference name their own modules), then from the stated module unless
+    that module belongs to another package."""
+    from . import conditionals
+
+    found = getattr(conditionals, clsname, None)
+    if isinstance(found, type) and issubclass(found, Predictor):
+        return found
+    if module_name.split(".")[0] not in FOREIGN_PACKAGES:
+        try:
+            return getattr(import_module(module_name), clsname)
+        except (ImportError, AttributeError):
+            pass
+    raise ValueError(
+        f"Cannot resolve predictor class {clsname} from module {module_name}: "
+        "mellon_tpu_torch has LandmarksConditionalCholesky only (ROADMAP "
+        "Queue 1, items 12-15 bring the other conditionals)."
+    )

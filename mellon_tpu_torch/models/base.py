@@ -11,7 +11,15 @@ import logging
 import torch
 
 from ..config import resolve_device_dtype
-from ..inference.optimizers import DEFAULT_OPTIMIZER, minimize_lbfgs
+from ..inference.advi import run_advi
+from ..inference.laplace import compute_laplace_std
+from ..inference.optimizers import (
+    DEFAULT_INIT_LEARN_RATE,
+    DEFAULT_N_ITER,
+    DEFAULT_OPTIMIZER,
+    minimize_adam,
+    minimize_lbfgs,
+)
 from ..ops.kernels import Matern52
 from ..ops.linalg import (
     PIVOT_REL_TOL,
@@ -47,16 +55,16 @@ from ..utils.validation import (
     validate_nn_distances,
     validate_positive_float,
     validate_positive_int,
+    validate_string,
 )
 
 DEFAULT_COV_FUNC = Matern52
 RANK_FRACTION_THRESHOLD = 0.8
 SAMPLE_LANDMARK_RATIO = 10
 
+OPTIMIZERS = ("adam", "advi", "L-BFGS-B")
 # what the other optimizers of the JAX package wait for
 _OPTIMIZER_ROADMAP = {
-    "adam": "ROADMAP Queue 1, item 7",
-    "advi": "ROADMAP Queue 1, item 11",
     "nuts": "ROADMAP Queue 1, item 16",
     "smc": "ROADMAP Queue 1, item 16",
 }
@@ -74,6 +82,8 @@ class BaseEstimator:
         rank=None,
         jitter=DEFAULT_JITTER,
         optimizer=DEFAULT_OPTIMIZER,
+        n_iter=DEFAULT_N_ITER,
+        init_learn_rate=DEFAULT_INIT_LEARN_RATE,
         landmarks=None,
         gp_type=None,
         nn_distances=None,
@@ -85,22 +95,27 @@ class BaseEstimator:
         Lp=None,
         L=None,
         initial_value=None,
+        predictor_with_uncertainty=False,
+        jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
         device=None,
         dtype=None,
     ):
         self.device, self.dtype = resolve_device_dtype(device, dtype)
-        if optimizer != DEFAULT_OPTIMIZER:
-            if optimizer in _OPTIMIZER_ROADMAP:
-                raise NotImplementedError(
-                    f"optimizer={optimizer!r} is not ported to mellon_tpu_torch "
-                    f"yet ({_OPTIMIZER_ROADMAP[optimizer]}); use 'L-BFGS-B'."
-                )
-            raise ValueError(
-                f"optimizer should be one of {{'L-BFGS-B'}}, got '{optimizer}' instead."
+        if optimizer in _OPTIMIZER_ROADMAP:
+            raise NotImplementedError(
+                f"optimizer={optimizer!r} is not ported to mellon_tpu_torch "
+                f"yet ({_OPTIMIZER_ROADMAP[optimizer]}); use one of {OPTIMIZERS}."
             )
-        self.optimizer = optimizer
+        self.optimizer = validate_string(optimizer, "optimizer", choices=set(OPTIMIZERS))
+        self.n_iter = validate_positive_int(n_iter, "n_iter")
+        self.init_learn_rate = validate_positive_float(init_learn_rate, "init_learn_rate")
+        self.predictor_with_uncertainty = validate_bool(
+            predictor_with_uncertainty, "predictor_with_uncertainty"
+        )
+        # accepted for the JAX package's signature: PyTorch runs eagerly
+        self.jit = validate_bool(jit, "jit")
         array = dict(optional=True, dtype=self.dtype, device=self.device)
         self.cov_func_curry = validate_cov_func_curry(cov_func_curry, cov_func, "cov_func_curry")
         self.n_landmarks = validate_positive_int(n_landmarks, "n_landmarks", optional=True)
@@ -139,6 +154,7 @@ class BaseEstimator:
             f"\n    mu={self.mu},"
             f"\n    n_landmarks={self.n_landmarks},"
             f"\n    optimizer={self.optimizer},"
+            f"\n    predictor_with_uncertainty={self.predictor_with_uncertainty},"
             f"\n    random_state={self.random_state},"
             "\n)"
         )
@@ -268,13 +284,44 @@ class BaseEstimator:
         _require_ported_gp_type(self.gp_type)
 
     def _run_inference(self):
-        """MAP fit of the latents by L-BFGS."""
-        logger.info("Running inference using %s.", self.optimizer)
-        results = minimize_lbfgs(self._value_and_grad, self.initial_value)
-        self.pre_transformation = results.pre_transformation
+        """Fit the latents with the estimator's optimizer; with
+        ``predictor_with_uncertainty``, their stds come from ADVI or, after
+        any other optimizer, from the diagonal Laplace approximation."""
+        optimizer = self.optimizer
+        logger.info("Running inference using %s.", optimizer)
         self.pre_transformation_std = None
-        self.losses = [results.loss]
-        self.opt_state = results
+        if optimizer == "adam":
+            results = minimize_adam(
+                self._value_and_grad,
+                self.initial_value,
+                n_iter=self.n_iter,
+                init_learn_rate=self.init_learn_rate,
+            )
+            self.pre_transformation = results.pre_transformation
+            self.losses = results.losses
+            self.opt_state = results.opt_state
+        elif optimizer == "advi":
+            seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
+            results = run_advi(
+                self._loss_batch,
+                self.initial_value,
+                n_iter=self.n_iter,
+                init_learn_rate=self.init_learn_rate,
+                generator=torch.Generator(device=self.device).manual_seed(seed),
+            )
+            self.pre_transformation = results.pre_transformation
+            self.pre_transformation_std = results.pre_transformation_std
+            self.losses = results.losses
+        else:
+            results = minimize_lbfgs(self._value_and_grad, self.initial_value)
+            self.pre_transformation = results.pre_transformation
+            self.losses = [results.loss]
+            self.opt_state = results
+        if optimizer != "advi" and self.predictor_with_uncertainty:
+            logger.info("Computing Laplace approximation for posterior uncertainty.")
+            self.pre_transformation_std = compute_laplace_std(
+                self._hessian_diagonal(self.pre_transformation)
+            )
 
     def _prepare_attribute(self, attribute):
         """Lazy attribute computation via the ``_compute_<attr>`` convention."""

@@ -3,8 +3,10 @@
 ``DensityEstimator().fit_predict(x)`` runs the main path: 1-NN distances and
 their repair, the d/mu/ls heuristics, k-means landmarks, the landmark
 Cholesky (pruned when singular at f32), L = k(x, xu) Lp⁻ᵀ, the ridge warm
-start, L-BFGS on the density loss and f = L z + μ.  ``.predict`` builds
-the landmark conditional-mean predictor lazily.
+start, the latents' fit (L-BFGS by default, or adam, or ADVI) and
+f = L z + μ.  ``.predict`` builds the landmark conditional predictor
+lazily; with ``predictor_with_uncertainty=True`` it also carries the
+latents' std (from ADVI, or else the diagonal Laplace approximation).
 """
 
 import logging
@@ -14,12 +16,14 @@ from ..inference.losses import (
     compute_log_density_x,
     compute_loss_func,
     compute_transform,
+    density_hessian_diagonal,
+    make_density_loss_batch,
     make_density_value_and_grad,
 )
-from ..inference.optimizers import DEFAULT_OPTIMIZER
+from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..parameters import DEFAULT_RANDOM_SEED, compute_d, compute_initial_value, compute_mu
 from ..utils.util import DEFAULT_JITTER
-from ..utils.validation import validate_array, validate_bool, validate_string
+from ..utils.validation import validate_array, validate_string
 from .base import DEFAULT_COV_FUNC, BaseEstimator
 
 DEFAULT_D_METHOD = "embedding"
@@ -47,10 +51,10 @@ logger = logging.getLogger("mellon_tpu_torch")
 class DensityEstimator(BaseEstimator):
     """Bayesian log-density model with a GP prior and a 1-NN likelihood.
 
-    Takes the arguments of ``mellon_tpu.DensityEstimator`` that the main
-    path uses, plus ``device`` (default ``"cuda"``) and ``dtype`` (default
-    ``torch.float32``).  ``landmarks=`` fixes the landmarks instead of
-    drawing them by k-means.
+    Takes the arguments of ``mellon_tpu.DensityEstimator`` but
+    ``sampler_options``, plus ``device`` (default ``"cuda"``) and ``dtype``
+    (default ``torch.float32``).  ``landmarks=`` fixes the landmarks
+    instead of drawing them by k-means.  ``jit`` is accepted and ignored.
     """
 
     def __init__(
@@ -62,6 +66,8 @@ class DensityEstimator(BaseEstimator):
         d_method=DEFAULT_D_METHOD,
         jitter=DEFAULT_JITTER,
         optimizer=DEFAULT_OPTIMIZER,
+        n_iter=DEFAULT_N_ITER,
+        init_learn_rate=DEFAULT_INIT_LEARN_RATE,
         landmarks=None,
         nn_distances=None,
         d=None,
@@ -73,17 +79,13 @@ class DensityEstimator(BaseEstimator):
         L=None,
         initial_value=None,
         predictor_with_uncertainty=False,
+        jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
         precision=None,
         device=None,
         dtype=None,
     ):
-        if validate_bool(predictor_with_uncertainty, "predictor_with_uncertainty"):
-            raise NotImplementedError(
-                "predictor_with_uncertainty is not ported to mellon_tpu_torch "
-                "yet (ROADMAP Queue 1, item 11)."
-            )
         if precision not in (None, "f32"):
             raise NotImplementedError(
                 f"precision={precision!r} is not ported to mellon_tpu_torch yet "
@@ -96,6 +98,8 @@ class DensityEstimator(BaseEstimator):
             jitter=jitter,
             gp_type=gp_type,
             optimizer=optimizer,
+            n_iter=n_iter,
+            init_learn_rate=init_learn_rate,
             landmarks=landmarks,
             nn_distances=nn_distances,
             d=d,
@@ -106,6 +110,8 @@ class DensityEstimator(BaseEstimator):
             Lp=Lp,
             L=L,
             initial_value=initial_value,
+            predictor_with_uncertainty=predictor_with_uncertainty,
+            jit=jit,
             check_rank=check_rank,
             random_state=random_state,
             device=device,
@@ -125,6 +131,7 @@ class DensityEstimator(BaseEstimator):
                 )
         self.transform = None
         self.loss_func = None
+        self.opt_state = None
         self.losses = None
         self.pre_transformation = None
         self.pre_transformation_std = None
@@ -165,9 +172,11 @@ class DensityEstimator(BaseEstimator):
         return compute_transform(self.mu, self.L)
 
     def _compute_loss_func(self):
-        self._value_and_grad = make_density_value_and_grad(
-            self.L, self.nn_distances, self.d, self.mu
-        )
+        # the forms the optimizers and the Laplace approximation take
+        args = (self.L, self.nn_distances, self.d, self.mu)
+        self._value_and_grad = make_density_value_and_grad(*args)
+        self._loss_batch = make_density_loss_batch(*args)
+        self._hessian_diagonal = lambda z: density_hessian_diagonal(z, *args)
         return compute_loss_func(
             self.nn_distances, self.d, self.transform, self.initial_value.shape[0]
         )
@@ -181,10 +190,16 @@ class DensityEstimator(BaseEstimator):
             self.x,
             self.landmarks,
             self.pre_transformation,
+            self.pre_transformation_std,
+            self.log_density_x,
             self.mu,
             self.cov_func,
+            self.L,
             self.Lp,
+            sigma=None,
             jitter=self.jitter,
+            y_is_mean=True,
+            with_uncertainty=self.predictor_with_uncertainty,
         )
         log_density_func.n_obs = self.x.shape[0]
         log_density_func.d = self.d

@@ -4,15 +4,19 @@ Counterpart of ``mellon_tpu/ops/pallas_kernels.py``.  The one kernel is the
 fused Matern-5/2 covariance tile (``csrc/matern52_tile.cu``), which replaces
 the Pallas kernel ``matern52_gram_pallas``.  On the density main path it
 builds the landmark gram K_uu, the cross-covariance C = k(x, xu) ahead of
-the whitening solve, and the predictor mean's k(X*, xu).
+the whitening solve, the predictor mean's k(X*, xu), the predictor
+covariance's k(xu, X*) and, with a gradient, the forward of the predictor's
+derivatives.
 
 :func:`matern52_gram` takes the plain version for tensors on the CPU and
 launches the CUDA kernel for tensors on a CUDA device; there is no fallback
 from one to the other.  One call launches two kernels (a pre-pass that lays
 x and y out feature-major with their norms, into a scratch buffer the
-wrapper allocates, then the tile kernel) and counts as one launch.  The kernel is compiled by ``nvcc`` from the
-package's sources at first use, into ``build/`` beside the package, keyed by
-a hash of the sources: nothing prebuilt is shipped.
+wrapper allocates, then the tile kernel) and counts as one launch.  Its
+gradient (:func:`matern52_gram_backward`) is plain torch on either device.
+The kernel is compiled by ``nvcc`` from the package's sources at first use,
+into ``build/`` beside the package, keyed by a hash of the sources:
+nothing prebuilt is shipped.
 """
 
 import ctypes
@@ -109,12 +113,50 @@ def matern52_gram_reference(x, y, ls):
     return (r + r * r / 3 + 1) * torch.exp(-r)
 
 
-def _check_operands(x, y, ls):
-    if x.requires_grad or y.requires_grad:
-        raise ValueError(
-            "matern52_gram has no backward yet; call it on tensors that do "
-            "not require grad."
+def matern52_gram_backward(grad_out, x, y, ls, needs_input_grad=(True, True)):
+    """``(∂/∂x, ∂/∂y)`` of ⟨grad_out, k(x, y)⟩ in plain torch ops, so that a
+    second derivative can be taken through it; None where not needed.
+
+    With r = √5‖xᵢ − yⱼ‖/ℓ, ∂k/∂xᵢ = −(5/(3ℓ²))·(1 + r)·e^{−r}·(xᵢ − yⱼ):
+    no 1/‖x − y‖ appears, so coincident points need no special case.  r
+    comes from the floored :func:`distance`, as in the forward.  The Pallas
+    kernel has no backward kernel either (JAX differentiates it with XLA);
+    a fused backward tile is ROADMAP Queue 2 speed work.
+    """
+    from ..utils.util import distance
+
+    r = math.sqrt(5.0) * distance(x, y) / ls
+    G = grad_out * (1 + r) * torch.exp(-r)
+    c = 5.0 / (3.0 * ls * ls)
+    grad_x = grad_y = None
+    if needs_input_grad[0]:
+        grad_x = c * (G @ y - G.sum(dim=1)[:, None] * x)
+    if needs_input_grad[1]:
+        grad_y = c * (G.T @ x - G.sum(dim=0)[:, None] * y)
+    return grad_x, grad_y
+
+
+class _Matern52Gram(torch.autograd.Function):
+    """k(x, y) with a gradient: the forward is the kernel call on detached
+    operands (the CUDA tile, or the plain version on the CPU), the backward
+    :func:`matern52_gram_backward`, itself differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, y, ls):
+        ctx.save_for_backward(x, y)
+        ctx.ls = ls
+        return _matern52_gram(x.detach(), y.detach(), ls)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, y = ctx.saved_tensors
+        grad_x, grad_y = matern52_gram_backward(
+            grad_out, x, y, ctx.ls, ctx.needs_input_grad[:2]
         )
+        return grad_x, grad_y, None
+
+
+def _check_operands(x, y, ls):
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(
             f"matern52_gram needs x (n, d) and y (m, d), got {tuple(x.shape)} "
@@ -138,9 +180,18 @@ def matern52_gram(x, y, ls):
 
     CPU tensors take :func:`matern52_gram_reference`; CUDA tensors launch
     the hand-written kernel on the current stream (``matern52_gram.launches``
-    counts those launches) and raise if it cannot launch.
+    counts those launches) and raise if it cannot launch.  Where grad mode
+    is on and an operand requires grad, the call goes through
+    :class:`_Matern52Gram` and the result has a gradient; otherwise it adds
+    nothing to the call's host time.
     """
     ls = float(ls)
+    if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
+        return _Matern52Gram.apply(x, y, ls)
+    return _matern52_gram(x, y, ls)
+
+
+def _matern52_gram(x, y, ls):
     _check_operands(x, y, ls)
     device = x.device
     if device.type == "cpu":

@@ -1,18 +1,23 @@
-"""Foundation utilities: distances, jitter, MLE, GP-type enum, rank check.
+"""Foundation utilities: distances, jitter, MLE, GP-type enum, rank check,
+active dims and the typed JSON encoding.
 
-Counterpart of ``mellon_tpu/utils/util.py`` for the density main path.
+Counterpart of ``mellon_tpu/utils/util.py`` for the density path.
 """
 
 import logging
 import math
 from enum import Enum
 
+import numpy as np
 import torch
 
 logger = logging.getLogger("mellon_tpu_torch")
 
 DEFAULT_JITTER = 1e-6
 DEFAULT_RANK_TOL = 5e-1
+# the tag of an array in the JSON files that this package, mellon_tpu and
+# the reference Mellon all read and write
+ARRAY_TAG = "jax.numpy"
 
 
 def distance(x, y):
@@ -27,6 +32,48 @@ def distance(x, y):
     xy = x @ y.T
     sq = xx - 2 * xy + yy + 1e-12
     return torch.sqrt(torch.clamp_min(sq, 1e-12))
+
+
+def distance_grad(x, eps=1e-12):
+    """``y -> (dist (n, m), ∂dist/∂y (n, m, d))`` for fixed x, with the JAX
+    package's arithmetic (``mellon_tpu/utils/util.py:60-78``): the squared
+    distance floored at 0 and the gradient divided by ``dist + eps``."""
+    xx = torch.sum(x * x, dim=1)[:, None]
+
+    def grad(y):
+        yy = torch.sum(y * y, dim=1)[None, :]
+        sq = xx - 2 * (x @ y.T) + yy + eps
+        dist = torch.sqrt(torch.clamp_min(sq, 0))
+        delta = y[None, :] - x[:, None]
+        return dist, delta / (dist[..., None] + eps)
+
+    return grad
+
+
+def _active_index(active_dims):
+    if isinstance(active_dims, (int, np.integer)):
+        return [int(active_dims)]
+    if isinstance(active_dims, np.ndarray):
+        return torch.from_numpy(active_dims)
+    return active_dims
+
+
+def select_active_dims(x, active_dims):
+    """The feature columns ``active_dims`` (an int, a sequence, a slice or
+    a boolean mask) of x; all of x where it is None."""
+    if active_dims is None:
+        return x
+    return x[..., _active_index(active_dims)]
+
+
+def expand_to_inactive(values, target_shape, active_dims):
+    """Scatter ``values`` of the active features into zeros of
+    ``target_shape`` (the gradient of a kernel that ignores the others)."""
+    if active_dims is None:
+        return values
+    full = values.new_zeros(target_shape)
+    full[..., _active_index(active_dims)] = values
+    return full
 
 
 def add_diagonal(A, value):
@@ -131,6 +178,61 @@ class GaussianProcessType(str, Enum):
         message = f"Unknown Gaussian Process type: {s}"
         logger.error(message)
         raise ValueError(message)
+
+
+def _None_to_str(v):
+    return "None" if v is None else v
+
+
+def _str_to_None(v):
+    return None if isinstance(v, str) and v == "None" else v
+
+
+def make_serializable(x):
+    """Typed JSON encoding of tensors, arrays, slices, dicts and sets, in the
+    on-disk format of ``mellon_tpu.utils.util.make_serializable``: an array
+    is ``{"type": "jax.numpy", "data": [...]}``, a 0-d one a plain number."""
+    if isinstance(x, bool):
+        return x
+    if hasattr(x, "dtype") and hasattr(x, "tolist"):
+        # torch tensors and numpy arrays and scalars
+        if getattr(x, "ndim", 1) == 0:
+            return x.item()
+        return {"type": ARRAY_TAG, "data": x.tolist()}
+    if isinstance(x, int):
+        return int(x)
+    if isinstance(x, float):
+        return float(x)
+    if isinstance(x, slice):
+        return {"type": "slice", "data": [_None_to_str(v) for v in (x.start, x.stop, x.step)]}
+    if isinstance(x, dict):
+        return {"type": "dict", "data": {k: make_serializable(v) for k, v in x.items()}}
+    if isinstance(x, (set, frozenset)):
+        return {"type": "set", "data": [make_serializable(v) for v in x]}
+    return _None_to_str(x)
+
+
+def deserialize(serializable_x, device=None, dtype=None):
+    """Inverse of :func:`make_serializable`.  Arrays become tensors on
+    ``device``; floating ones in ``dtype`` (integer and boolean ones keep
+    their type, as index arrays must)."""
+    if isinstance(serializable_x, dict):
+        data_type = serializable_x.get("type")
+        if data_type == ARRAY_TAG:
+            array = torch.from_numpy(np.asarray(serializable_x["data"]))
+            if array.is_floating_point():
+                return array.to(device=device, dtype=dtype)
+            return array.to(device=device)
+        if data_type == "slice":
+            return slice(*[_str_to_None(v) for v in serializable_x["data"]])
+        if data_type == "dict":
+            return {
+                k: deserialize(v, device, dtype) for k, v in serializable_x["data"].items()
+            }
+        if data_type == "set":
+            return {deserialize(v, device, dtype) for v in serializable_x["data"]}
+        return serializable_x
+    return _str_to_None(serializable_x)
 
 
 def object_str(obj, dim_names=None):

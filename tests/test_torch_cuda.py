@@ -119,3 +119,87 @@ def test_small_fit_on_card_matches_cpu(cuda):
     spread = lds[0].max() - lds[0].min()
     assert np.corrcoef(lds[0], lds[1])[0, 1] >= 0.99999
     assert np.abs(lds[0] - lds[1]).max() <= 1e-3 * spread
+
+
+@pytest.mark.parametrize("shape", [(1000, 2048, 20), (300, 260, 130), (777, 100, 1)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_matern52_backward_matches_plain_autograd(cuda, shape, dtype, rel):
+    """The kernel call's gradient (forward on the card, closed-form
+    backward) against autograd through the plain version, with five pairs
+    of coincident points.  Each gradient entry is a sum of m (or n) terms
+    c·Gᵢⱼ·(yⱼ − xᵢ), G = w·(1 + r)e^{−r}, c = 5/(3 ls²), which both forms
+    compute as a difference of two sums; the bar is rel (f32 1e-5, f64
+    1e-12) times the largest sum of the terms' magnitudes.  (At d = 130 the
+    gradients are tiny beside the coincident pairs' O(1) terms, which
+    cancel exactly in value but not in rounding.)"""
+    n, m, d = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(n, d, device=cuda, dtype=dtype, generator=g)
+    y = torch.randn(m, d, device=cuda, dtype=dtype, generator=g)
+    y[:5] = x[:5]
+    w = torch.randn(n, m, device=cuda, dtype=dtype, generator=g)
+    grads = []
+    for fn in (matern52_gram, matern52_gram_reference):
+        xa, ya = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad((fn(xa, ya, 2.3) * w).sum(), (xa, ya)))
+    x64, y64 = x.double(), y.double()
+    r = 5**0.5 * torch.cdist(x64, y64) / 2.3
+    G = (w.double() * (1 + r) * torch.exp(-r)).abs() * 5 / (3 * 2.3**2)
+    scale = max((G @ y64.abs() + G.sum(1)[:, None] * x64.abs()).max().item(),
+                (G.T @ x64.abs() + G.sum(0)[:, None] * y64.abs()).max().item())
+    for got, want in zip(*grads):
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= rel * scale
+
+
+def test_matern52_gradient_launches_once(cuda):
+    """A call without grad and a call with grad each count one launch; the
+    backward launches nothing."""
+    x = torch.randn(300, 20, device=cuda)
+    y = torch.randn(200, 20, device=cuda)
+    before = matern52_gram.launches
+    matern52_gram(x, y, 1.5)
+    assert matern52_gram.launches == before + 1
+    xg = x.clone().requires_grad_(True)
+    K = matern52_gram(xg, y, 1.5)
+    assert matern52_gram.launches == before + 2
+    K.sum().backward()
+    torch.cuda.synchronize()
+    assert matern52_gram.launches == before + 2 and torch.isfinite(xg.grad).all()
+
+
+@pytest.fixture
+def card_predictor(cuda):
+    """A float32 fit with Laplace uncertainty on the card (2,000 cells,
+    d = 10, 200 fixed landmarks)."""
+    rng = np.random.RandomState(27)
+    x = rng.randn(2000, 10) * np.exp(-0.15 * np.arange(10))
+    est = mellon_tpu_torch.DensityEstimator(landmarks=x[::10], predictor_with_uncertainty=True)
+    return est.fit(x).predict, x
+
+
+def test_predictor_json_round_trip_on_card(card_predictor, tmp_path):
+    """A CUDA predictor through gzip JSON comes back on the card in float32
+    with the same mean and uncertainty (1e-6 relative)."""
+    pred, x = card_predictor
+    path = str(tmp_path / "p.json.gz")
+    pred.to_json(path, compress="gzip")
+    back = mellon_tpu_torch.Predictor.from_json(path)
+    assert back.device.type == "cuda" and back.dtype == torch.float32
+    for method in ("mean", "uncertainty"):
+        a, b = getattr(back, method)(x[:500]), getattr(pred, method)(x[:500])
+        assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item()
+
+
+def test_uncertainty_at_200k_points(card_predictor):
+    """uncertainty, covariance and mean_covariance at 200,000 points (one
+    full chunk of 200,000 x 200 kernel tiles in both orientations): finite,
+    and mean_covariance >= 0."""
+    pred, x = card_predictor
+    g = torch.Generator(device="cuda").manual_seed(6)
+    xq = torch.as_tensor(x, dtype=torch.float32, device="cuda")[
+        torch.randint(0, x.shape[0], (200_000,), device="cuda", generator=g)
+    ] + 0.05 * torch.randn(200_000, x.shape[1], device="cuda", generator=g)
+    u, mc = pred.uncertainty(xq), pred.mean_covariance(xq)
+    assert u.shape == (200_000,) and torch.isfinite(u).all()
+    assert torch.isfinite(pred.covariance(xq)).all() and (mc >= 0).all()

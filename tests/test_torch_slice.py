@@ -82,10 +82,10 @@ def test_slice_f32_prunes_like_jax():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        {"optimizer": "adam"},
+        {"optimizer": "smc"},
         {"optimizer": "nuts"},
         {"gp_type": "sparse_nystroem", "rank": 0.9},
-        {"predictor_with_uncertainty": True},
+        {"precision": "bf16", "optimizer": "adam"},
         {"d_method": "fractal"},
         {"precision": "bf16"},
     ],
