@@ -6,10 +6,10 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3 and 5-8) runs with the kernel's launch count set to 0 just
-before it and read just after, and fails if the kernel was not launched;
-the operands of every kernel call the covariance module makes on these
-paths are kept for phase 4.
+Each path (3, 5-8 and 11-13) runs with the kernel's launch count set to 0
+just before it and read just after, and fails if the kernel was not
+launched; the operands of every kernel call the covariance module makes on
+these paths are kept for phase 4.
 
 1. device: the card's name and power limit (from nvidia-smi);
 2. build: nvcc builds the Matern-5/2 kernel from csrc/ into build/;
@@ -58,7 +58,29 @@ paths are kept for phase 4.
 9. wrapper: the host time of one ``matern52_gram`` call, over 1,000 calls
    without a synchronise, in turns with the call below its autograd
    routing;
-10. timing: the warm fit time (median of 3) and a per-stage breakdown.
+10. timing: the warm fit time (median of 3) and a per-stage breakdown;
+11. nuts: DensityEstimator(optimizer="nuts", predictor_with_uncertainty=True)
+   with the estimator's default sampler settings (4 chains, depth 10, step
+   0.1) but 100 warmup transitions and 50 draws (NUTS_OPTIONS; the default
+   200 and 200 do not fit the time budget): its sampling time, step size,
+   acceptance, divergences,
+   leapfrogs per draw (reported, and the potential's evaluations counted),
+   host reads per transition, ESS and ESS/s, held to max split-R-hat <=
+   NUTS_MAX_RHAT, mean NUTS std / mean Laplace std in STD_RATIO and
+   corr(posterior-mean log density, the main path's) >= POSTERIOR_MIN_CORR;
+   its uncertainty at the 1,000 points (finite);
+12. nuts precond: sample_density_posterior(precondition="hessian") on the
+   main path's fit (PRECOND settings) after the Newton polish, Hessian
+   build and factor run and timed on their own: draws/s, ESS/s, the
+   Geyer-truncated dimensions, held to max split-R-hat <= PRECOND_MAX_RHAT;
+   TRACE_TRANSITIONS more transitions from its last draws under
+   torch.profiler (busy and idle share, host reads per transition); the
+   draws' mean-and-std predictor at the 1,000 points (finite);
+13. smc: smc_density_posterior on the main path's fit (SMC settings): its
+   stages, β, the log evidence ± its across-sweep std, the acceptance
+   range, held to β = 1, a finite evidence and corr(particle-mean log
+   density, the main path's) >= POSTERIOR_MIN_CORR; the particles'
+   predictor at the 1,000 points (finite).
 
 The line before the last is the JSON kernel report (``launches``: over
 all paths; ``ms``, ``plain_ms`` and ``bound_ms``: the kernel's, the plain
@@ -69,6 +91,7 @@ CUDA device the script exits with status 2 and prints no result.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -104,6 +127,21 @@ UNCERTAINTY_F64_REL = {"covariance": 0.25, "mean_covariance": 1e-2, "uncertainty
 DERIV_REL = 1e-3
 JSON_REL = 1e-6
 FIXTURE_ATOL = 1e-5
+# the sampler paths: the split-R-hat bars and the NUTS/Laplace std ratio of
+# tests/test_mcmc.py:95-124; the correlation of a posterior-mean log
+# density with the MAP's, set from a CPU rehearsal (PERF.md)
+NUTS_MAX_RHAT = 1.1
+PRECOND_MAX_RHAT = 1.05
+STD_RATIO = (0.5, 2.0)
+POSTERIOR_MIN_CORR = 0.99
+# the estimator's NUTS defaults are 4 chains, 200 warmup, 200 draws, depth
+# 10; at the bench shape they took 70 s on the H100 (host-bound leaf loop,
+# PERF.md), so this path cuts the warmup and the draws to fit its
+# share of the time budget
+NUTS_OPTIONS = dict(num_warmup=100, num_samples=50)
+PRECOND = dict(num_chains=64, num_warmup=100, num_samples=200)
+SMC = dict(num_particles=1024, start="laplace", num_sweeps=2)
+TRACE_TRANSITIONS = 10
 
 # H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
 # peak rates outside the tensor cores
@@ -503,6 +541,197 @@ def json_path(mt, pred, x_new):
         raise AssertionError(f"JSON round trip {gap}, reference predictor {fix}")
 
 
+def posterior_predictor(est, z):
+    """The predictor with uncertainty of the latents' posterior draws ``z``
+    (draws, k): their mean and std (ddof 0) on the estimator's landmarks."""
+    from mellon_tpu_torch.inference.factories import compute_conditional
+
+    mean = z.mean(dim=0)
+    return compute_conditional(
+        est.x, est.landmarks, mean, z.std(dim=0, correction=0), est.transform(mean), est.mu,
+        est.cov_func, est.L, est.Lp, sigma=None, jitter=est.jitter, y_is_mean=True,
+        with_uncertainty=True,
+    )
+
+
+def log_density_corr(ld, ld_map):
+    import numpy as np
+
+    return float(np.corrcoef(ld.double().cpu().numpy(), ld_map.double().cpu().numpy())[0, 1])
+
+
+def finite(*tensors):
+    import torch
+
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def nuts_path(mt, x_np, x_new, est_map):
+    """DensityEstimator(optimizer="nuts", predictor_with_uncertainty=True)
+    with its default sampler settings, held to the bars of
+    tests/test_mcmc.py:95-124 against the main path's L-BFGS fit and its
+    Laplace stds; the predictor's uncertainty at the 1,000 points."""
+    import numpy as np
+
+    from mellon_tpu_torch.inference.diagnostics import split_rhat
+    from mellon_tpu_torch.inference.laplace import compute_laplace_std
+
+    est = mt.DensityEstimator(optimizer="nuts", predictor_with_uncertainty=True,
+                              sampler_options=NUTS_OPTIONS, device=DEVICE)
+    ld, fit_s = synced_seconds(lambda: est.fit_predict(x_np))
+    res = est.mcmc_result
+    chains, draws = res.samples.shape[:2]
+    rhat = float(np.max(split_rhat(res.samples)))
+    laplace = compute_laplace_std(est_map._hessian_diagonal(est_map.pre_transformation))
+    ratio = float(est.pre_transformation_std.mean() / laplace.mean())
+    corr = log_density_corr(ld, est_map.log_density_x)
+    u = est.predict.uncertainty(x_new)
+    stats = {
+        "settings": {"num_chains": chains, "num_warmup": NUTS_OPTIONS["num_warmup"],
+                     "num_samples": draws, "max_tree_depth": 10, "initial_step_size": 0.1},
+        "fit_seconds": fit_s, "sampling_seconds": est.sampling_time,
+        "step_size": float(res.step_size), "mean_accept": float(res.accept_prob.mean()),
+        "divergences": int(res.diverging.sum()),
+        "leapfrogs_per_draw": float(res.num_leapfrog.double().mean()),
+        "potential_evaluations_per_draw": res.num_evaluations / (chains * draws),
+        "host_reads_per_transition": res.host_reads / draws,
+        "ess_min": float(est.ess.min()), "ess_median": float(np.median(est.ess)),
+        "ess_per_second": est.ess_per_second, "max_rhat": rhat,
+        "nuts_over_laplace_std": ratio, "corr_with_map": corr,
+    }
+    log("[nuts] " + json.dumps(stats))
+    log(f"[nuts] bars: max split-R-hat <= {NUTS_MAX_RHAT}, std ratio in {list(STD_RATIO)}, "
+        f"corr >= {POSTERIOR_MIN_CORR}, all finite")
+    ok = (finite(ld, res.samples, est.pre_transformation_std, u) and rhat <= NUTS_MAX_RHAT
+          and STD_RATIO[0] <= ratio <= STD_RATIO[1] and corr >= POSTERIOR_MIN_CORR)
+    if not ok:
+        raise AssertionError(f"NUTS failed its bars: {stats}")
+    return stats
+
+
+def precond_path(mt, est_map, x_new):
+    """sample_density_posterior(precondition="hessian") on the main path's
+    fit (PRECOND settings, no function samples); the Newton polish, the
+    Hessian build and its factor are also run and timed on their own
+    first.  The posterior predictor at the 1,000 points must be finite."""
+    import numpy as np
+
+    from mellon_tpu_torch.inference import mcmc
+    from mellon_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
+    from mellon_tpu_torch.inference.losses import density_hessian
+
+    args = est_map._loss_args
+    z0 = est_map.pre_transformation
+    value_and_grad, _ = mcmc.zero_centered_potential(z0, *args)
+    hessian = lambda z: density_hessian(z, *args)  # noqa: E731
+    (z_map, gn0, gn1), polish_s = synced_seconds(lambda: mcmc.newton_polish(value_and_grad, hessian, z0))
+    H, build_s = synced_seconds(lambda: hessian(z_map))
+    _, factor_s = synced_seconds(lambda: mcmc.precondition_transform(mcmc.hessian_cholesky(H)))
+    (res, _), seconds = synced_seconds(lambda: mcmc.sample_density_posterior(
+        est_map, precondition="hessian", function_samples=False, **PRECOND))
+    R = mcmc.hessian_cholesky(H)
+    trace = trace_transitions(
+        mcmc.preconditioned_potential(value_and_grad, mcmc.precondition_transform(R), z_map),
+        (res.samples[:, -1] - z_map) @ R, res.step_size, res.inv_mass_diag)
+    chains, draws = res.samples.shape[:2]
+    ess, lags = effective_sample_size(res.samples, return_truncation=True)
+    rhat = float(np.max(split_rhat(res.samples)))
+    flat = res.samples.reshape(-1, res.samples.shape[-1])
+    pred = posterior_predictor(est_map, flat)
+    at_new, u = pred(x_new), pred.uncertainty(x_new)
+    stats = {
+        "settings": PRECOND, "newton_grad_norm": [gn0, gn1], "newton_seconds": polish_s,
+        "hessian_build_seconds": build_s, "hessian_factor_seconds": factor_s,
+        "seconds": seconds, "step_size": float(res.step_size),
+        "mean_accept": float(res.accept_prob.mean()), "divergences": int(res.diverging.sum()),
+        "leapfrogs_per_draw": float(res.num_leapfrog.double().mean()),
+        "potential_evaluations_per_draw": res.num_evaluations / (chains * draws),
+        "host_reads_per_transition": res.host_reads / draws,
+        "draws_per_second": chains * draws / seconds,
+        "ess_min_per_second": float(ess.min()) / seconds,
+        "ess_median_per_second": float(np.median(ess)) / seconds,
+        "geyer_truncated_dims": int(np.sum(lags + 2 > draws)), "max_rhat": rhat,
+    }
+    log("[nuts precond] " + json.dumps(stats))
+    log(f"[nuts precond] seconds: the whole sample_density_posterior call (its own polish, "
+        f"Hessian and factor included); bars: max split-R-hat <= {PRECOND_MAX_RHAT}, all finite")
+    log("[nuts precond] trace " + json.dumps(trace))
+    if not (finite(res.samples, at_new, u) and rhat <= PRECOND_MAX_RHAT):
+        raise AssertionError(f"preconditioned NUTS failed its bars: {stats}")
+    return stats
+
+
+def union_length(intervals):
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total, end = total + b - a, b
+        elif b > end:
+            total, end = total + b - end, b
+    return total
+
+
+def trace_transitions(potential, start, step_size, inv_mass, n=TRACE_TRANSITIONS):
+    """``n`` sampling transitions of the whitened potential from the
+    chains' last positions (resume_mcmc, the same seed each time), twice
+    without and once under torch.profiler: the device's busy share (the
+    union of the traced kernels' intervals over the quicker unprofiled
+    run), the host reads and lockstep leaves per transition, and leaf steps
+    per second.  The Chrome trace goes to build/."""
+    import torch
+
+    from mellon_tpu_torch.inference.mcmc import resume_mcmc
+
+    def transitions():
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        return resume_mcmc(potential, start, gen, step_size, inv_mass, num_samples=n)
+
+    res, wall = min((synced_seconds(transitions) for _ in range(2)), key=lambda r: r[1])
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        synced_seconds(transitions)
+    prof.export_chrome_trace(os.path.join(ROOT, "build", "chip_smoke_sampler_trace.json"))
+    device = [(e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        raise AssertionError("the profiler recorded no device time")
+    busy = union_length(device) / 1e6
+    leaves = res.num_evaluations / start.shape[0]
+    top = sorted(((e.key[:60], round(e.device_time_total / 1e3, 3), e.count)
+                  for e in prof.key_averages() if e.device_time_total > 0), key=lambda r: -r[1])[:6]
+    return {"transitions": n, "chains": start.shape[0], "unprofiled_seconds": wall,
+            "device_busy_seconds": busy, "busy_share": busy / wall, "idle_share": 1 - busy / wall,
+            "device_kernels": len(device), "host_reads_per_transition": res.host_reads / n,
+            "lockstep_leaves_per_transition": leaves / n, "leaf_steps_per_second": leaves / wall,
+            "top_device_ms_calls": top}
+
+
+def smc_path(mt, est_map, x_new):
+    """smc_density_posterior on the main path's fit (SMC settings): β
+    reaches 1, a finite evidence, and a particle-mean log density that
+    tracks the MAP's; the posterior predictor at the 1,000 points."""
+    from mellon_tpu_torch.inference.smc import smc_density_posterior
+
+    (res, f), seconds = synced_seconds(lambda: smc_density_posterior(est_map, **SMC))
+    corr = log_density_corr(f.mean(dim=0), est_map.log_density_x)
+    pred = posterior_predictor(est_map, res.particles)
+    at_new, u = pred(x_new), pred.uncertainty(x_new)
+    stats = {
+        "settings": SMC, "seconds": seconds, "stages_last_sweep": len(res.betas),
+        "final_beta": res.betas[-1], "log_evidence": res.log_evidence,
+        "log_evidence_std": res.log_evidence_std,
+        "acceptance_range": [min(res.acceptance_history), max(res.acceptance_history)],
+        "ess_range": [min(res.ess_history), max(res.ess_history)], "corr_with_map": corr,
+    }
+    log("[smc] " + json.dumps(stats))
+    log(f"[smc] bars: final beta == 1, finite evidence, corr >= {POSTERIOR_MIN_CORR}")
+    if not (res.betas[-1] == 1.0 and math.isfinite(res.log_evidence) and finite(f, at_new, u)
+            and corr >= POSTERIOR_MIN_CORR):
+        raise AssertionError(f"SMC failed its bars: {stats}")
+    return stats
+
+
 def wrapper_host_us(calls=1000, turns=4):
     """Host time of one ``matern52_gram`` call (checks, allocation, the
     ctypes call and the launch): a host clock over ``calls`` calls without
@@ -659,6 +888,11 @@ def main():
         hk, "derivatives", lambda: derivatives_path(pred, x_new))
     check_derivatives(pred, X, derivs)
     _, path_launches["json"] = counted_path(hk, "json", lambda: json_path(mt, pred, x_new))
+    # 11-13. the posterior samplers
+    _, path_launches["nuts"] = counted_path(hk, "nuts", lambda: nuts_path(mt, x_np, x_new, est))
+    _, path_launches["nuts precond"] = counted_path(
+        hk, "nuts precond", lambda: precond_path(mt, est, x_new))
+    _, path_launches["smc"] = counted_path(hk, "smc", lambda: smc_path(mt, est, x_new))
     stop_recording()
     launches = sum(path_launches.values())
     if len(calls) != launches:

@@ -2,7 +2,9 @@
 
 A port of ``mellon_tpu`` (JAX, TPU) to PyTorch on an NVIDIA H100.  It runs
 ``DensityEstimator(...).fit(x)`` with L-BFGS, adam or ADVI and the
-optional diagonal Laplace uncertainty, and its predictor: the mean, its
+optional diagonal Laplace uncertainty, or with the posterior samplers
+(multi-chain NUTS and HMC, Hessian-preconditioned sampling, SMC, and their
+diagnostics in :mod:`.inference`), and its predictor: the mean, its
 covariance and uncertainty, gradient and Hessian, and JSON in the format
 mellon_tpu reads.  The Matern-5/2 covariance tile is a hand-written CUDA
 kernel for ``sm_90a`` (``csrc/matern52_tile.cu``), built from source at
@@ -26,7 +28,7 @@ from .ops.kernels import (
 )
 from .utils.util import GaussianProcessType
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"
 
 __all__ = [
     "__version__",

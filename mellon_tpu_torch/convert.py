@@ -50,8 +50,9 @@ def state_from_jax(source, device=None, dtype=None):
 
     ``source`` is a fitted ``mellon_tpu.DensityEstimator`` (its ``x``,
     ``landmarks``, ``nn_distances``, ``d``, ``mu``, ``ls``, ``cov_func``,
-    ``Lp``, ``L``, ``pre_transformation`` and ``pre_transformation_std``
-    are read) or a ``mellon_tpu`` ``LandmarksConditionalCholesky``
+    ``Lp``, ``L``, ``initial_value``, ``pre_transformation`` and
+    ``pre_transformation_std`` are read; the estimator's loss is built, so
+    the samplers can run on it) or a ``mellon_tpu`` ``LandmarksConditionalCholesky``
     predictor (``landmarks``, ``weights``, ``mu``, ``jitter``, ``sigma``,
     the kernel, and ``L`` and ``W`` where it has uncertainty).
     """
@@ -94,6 +95,8 @@ def state_from_jax(source, device=None, dtype=None):
     est.n_landmarks = est.landmarks.shape[0]
     est.pre_transformation = tensor(source.pre_transformation)
     est.pre_transformation_std = tensor(source.pre_transformation_std)
+    est.initial_value = tensor(source.initial_value)
     est.transform = compute_transform(est.mu, est.L)
+    est._prepare_attribute("loss_func")
     est.log_density_x = compute_log_density_x(est.pre_transformation, est.transform)
     return est

@@ -10,8 +10,9 @@ where V and Vdr are the 1-NN likelihood constants and c the optional
 ``loss_offset_per_term``.  Autodiff is not needed: the gradient reads L
 once more, as a transposed matrix-vector product (a fused one-pass
 value-and-grad kernel is ROADMAP kernel K4).  The same closed form gives
-the Hessian's diagonal for the Laplace approximation; ADVI evaluates the
-loss at a batch of latent vectors at once.
+the Hessian and its diagonal (the Laplace approximation, the samplers'
+preconditioner); ADVI, the samplers' chains and SMC's particles evaluate
+the loss at a batch of latent vectors at once.
 """
 
 import math
@@ -69,6 +70,40 @@ def make_density_loss_batch(L, nn_distances, d, mu):
     return loss_batch
 
 
+def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_term=0.0):
+    """``Z -> (losses (C,), gradients (C, k))`` at the C rows of Z: the
+    samplers' potential, one call per leapfrog for every chain.  F = L Zᵀ + μ
+    and the gradient Z − (Lᵀ(1 − E))ᵀ are two (n, k)×(k, C) products;
+    ``loss_offset_per_term`` as in :func:`density_loss`."""
+    V, Vdr = nearest_neighbors_terms(nn_distances, d)
+    V, Vdr = V[:, None], Vdr[:, None]
+
+    def value_and_grad(Z):
+        k = Z.shape[1]
+        F = L @ Z.T + mu
+        E = torch.exp(F + V)
+        prior = -(1 / 2) * torch.sum(Z * Z, dim=1) - (k / 2) * math.log(2 * math.pi)
+        likelihood = torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0)
+        return -(prior + likelihood), Z - (L.T @ (1 - E)).T
+
+    return value_and_grad
+
+
+def make_density_loglik_batch(L, nn_distances, d, mu):
+    """``Z -> (log-likelihoods (C,), gradients (C, k))``: the likelihood
+    term of the density loss alone, which SMC tempers (the JAX package
+    gets it as ``loglik_from_loss(density_loss)``)."""
+    V, Vdr = nearest_neighbors_terms(nn_distances, d)
+    V, Vdr = V[:, None], Vdr[:, None]
+
+    def loglik(Z):
+        F = L @ Z.T + mu
+        E = torch.exp(F + V)
+        return torch.sum((F + Vdr) - E, dim=0), (L.T @ (1 - E)).T
+
+    return loglik
+
+
 # rows of L per step of the Hessian diagonal: bounds its (rows, k) temporary
 HESSIAN_CHUNK_ROWS = 4096
 
@@ -88,6 +123,20 @@ def density_hessian_diagonal(z, L, nn_distances, d, mu):
         e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
         diag = diag + e @ (rows * rows)
     return diag
+
+
+def density_hessian(z, L, nn_distances, d, mu):
+    """The density loss's Hessian I + Lᵀ·diag(e^{Lz+μ+V})·L at z, (k, k),
+    summed over :data:`HESSIAN_CHUNK_ROWS` rows of L at a time: the matrix
+    the JAX package assembles from blocked Hessian-vector products
+    (``mellon_tpu/inference/mcmc.py:_hessian_block``)."""
+    V, _ = nearest_neighbors_terms(nn_distances, d)
+    H = torch.eye(z.shape[0], dtype=z.dtype, device=z.device)
+    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
+        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
+        H = H + (rows * e[:, None]).T @ rows
+    return H
 
 
 def compute_transform(mu, L):

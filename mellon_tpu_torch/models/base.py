@@ -7,12 +7,30 @@ Every tensor of an estimator lives on its ``device`` in its ``dtype``
 """
 
 import logging
+import math
+import time
 
+import numpy as np
 import torch
 
 from ..config import resolve_device_dtype
 from ..inference.advi import run_advi
+from ..inference.diagnostics import effective_sample_size
 from ..inference.laplace import compute_laplace_std
+from ..inference.losses import (
+    density_hessian,
+    make_density_loglik_batch,
+    make_density_value_and_grad_batch,
+)
+from ..inference.mcmc import (
+    hessian_cholesky,
+    newton_polish,
+    precondition_transform,
+    preconditioned_potential,
+    run_mcmc,
+    unwhiten_samples,
+    zero_centered_potential,
+)
 from ..inference.optimizers import (
     DEFAULT_INIT_LEARN_RATE,
     DEFAULT_N_ITER,
@@ -20,6 +38,7 @@ from ..inference.optimizers import (
     minimize_adam,
     minimize_lbfgs,
 )
+from ..inference.smc import laplace_start, run_smc
 from ..ops.kernels import Matern52
 from ..ops.linalg import (
     PIVOT_REL_TOL,
@@ -62,14 +81,93 @@ DEFAULT_COV_FUNC = Matern52
 RANK_FRACTION_THRESHOLD = 0.8
 SAMPLE_LANDMARK_RATIO = 10
 
-OPTIMIZERS = ("adam", "advi", "L-BFGS-B")
-# what the other optimizers of the JAX package wait for
-_OPTIMIZER_ROADMAP = {
-    "nuts": "ROADMAP Queue 1, item 16",
-    "smc": "ROADMAP Queue 1, item 16",
+OPTIMIZERS = ("adam", "advi", "L-BFGS-B", "nuts", "smc")
+
+# ``sampler_options=`` keys of optimizer="nuts" and optimizer="smc", as in
+# the JAX package.  "steps_per_call" bounds one compiled XLA program's run
+# time there; it is validated and ignored here (PyTorch runs eagerly).
+_NUTS_OPTION_KEYS = {
+    "num_chains",
+    "num_warmup",
+    "num_samples",
+    "target_accept",
+    "max_tree_depth",
+    "initial_step_size",
+    "steps_per_call",
+    "precondition",
+}
+_SMC_OPTION_KEYS = {
+    "num_particles",
+    "target_ess_frac",
+    "num_mutation_steps",
+    "mutation_step_size",
+    "num_leapfrog_steps",
+    "max_stages",
+    "start",
+}
+# string-valued options with their allowed values
+_STR_SAMPLER_OPTIONS = {
+    "start": ("prior", "laplace"),
+    "precondition": ("hessian",),
+}
+_SAMPLER_OPTION_KEYS = _NUTS_OPTION_KEYS | _SMC_OPTION_KEYS
+# count-valued options: the samplers int()-cast these, so 0.5 would become 0
+_INT_SAMPLER_OPTION_KEYS = {
+    "num_chains",
+    "num_warmup",
+    "num_samples",
+    "max_tree_depth",
+    "num_particles",
+    "num_mutation_steps",
+    "num_leapfrog_steps",
+    "max_stages",
+    "steps_per_call",
 }
 
 logger = logging.getLogger("mellon_tpu_torch")
+
+
+def _validate_sampler_options(options):
+    """Validate the ``sampler_options`` dict (None -> {}), with the JAX
+    package's messages."""
+    if options is None:
+        return {}
+    if not isinstance(options, dict):
+        raise ValueError(
+            "sampler_options must be a dict of sampler settings, got "
+            f"{type(options).__name__}."
+        )
+    unknown = set(options) - _SAMPLER_OPTION_KEYS
+    if unknown:
+        raise ValueError(
+            f"Unknown sampler_options key(s) {sorted(unknown)}. "
+            f"NUTS accepts {sorted(_NUTS_OPTION_KEYS)}; "
+            f"SMC accepts {sorted(_SMC_OPTION_KEYS)}."
+        )
+    for name, value in options.items():
+        if name in _STR_SAMPLER_OPTIONS:
+            if value not in _STR_SAMPLER_OPTIONS[name]:
+                raise ValueError(
+                    f"sampler_options[{name!r}] must be one of "
+                    f"{_STR_SAMPLER_OPTIONS[name]}, got {value!r}."
+                )
+            continue
+        # finiteness first: inf would overflow int() below, and NaN passes
+        # `value <= 0`
+        if (
+            isinstance(value, bool)
+            or not isinstance(value, (int, float))
+            or not math.isfinite(value)
+            or value <= 0
+        ):
+            raise ValueError(
+                f"sampler_options[{name!r}] must be a positive number, got {value!r}."
+            )
+        if name in _INT_SAMPLER_OPTION_KEYS and value != int(value):
+            raise ValueError(
+                f"sampler_options[{name!r}] must be a positive integer, got {value!r}."
+            )
+    return dict(options)
 
 
 class BaseEstimator:
@@ -99,15 +197,11 @@ class BaseEstimator:
         jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
+        sampler_options=None,
         device=None,
         dtype=None,
     ):
         self.device, self.dtype = resolve_device_dtype(device, dtype)
-        if optimizer in _OPTIMIZER_ROADMAP:
-            raise NotImplementedError(
-                f"optimizer={optimizer!r} is not ported to mellon_tpu_torch "
-                f"yet ({_OPTIMIZER_ROADMAP[optimizer]}); use one of {OPTIMIZERS}."
-            )
         self.optimizer = validate_string(optimizer, "optimizer", choices=set(OPTIMIZERS))
         self.n_iter = validate_positive_int(n_iter, "n_iter")
         self.init_learn_rate = validate_positive_float(init_learn_rate, "init_learn_rate")
@@ -138,6 +232,7 @@ class BaseEstimator:
             self.d = self.d.to(device=self.device, dtype=self.dtype)
         self.initial_value = validate_array(initial_value, "initial_value", **array)
         self.check_rank = validate_bool(check_rank, "check_rank", optional=True)
+        self.sampler_options = _validate_sampler_options(sampler_options)
         self.x = None
         self.pre_transformation = None
 
@@ -285,8 +380,9 @@ class BaseEstimator:
 
     def _run_inference(self):
         """Fit the latents with the estimator's optimizer; with
-        ``predictor_with_uncertainty``, their stds come from ADVI or, after
-        any other optimizer, from the diagonal Laplace approximation."""
+        ``predictor_with_uncertainty``, their stds come from ADVI, NUTS or
+        SMC or, after L-BFGS or adam, from the diagonal Laplace
+        approximation."""
         optimizer = self.optimizer
         logger.info("Running inference using %s.", optimizer)
         self.pre_transformation_std = None
@@ -312,16 +408,104 @@ class BaseEstimator:
             self.pre_transformation = results.pre_transformation
             self.pre_transformation_std = results.pre_transformation_std
             self.losses = results.losses
+        elif optimizer == "nuts":
+            self._run_nuts()
+        elif optimizer == "smc":
+            self._run_smc()
         else:
             results = minimize_lbfgs(self._value_and_grad, self.initial_value)
             self.pre_transformation = results.pre_transformation
             self.losses = [results.loss]
             self.opt_state = results
-        if optimizer != "advi" and self.predictor_with_uncertainty:
+        if self.predictor_with_uncertainty and self.pre_transformation_std is None:
             logger.info("Computing Laplace approximation for posterior uncertainty.")
             self.pre_transformation_std = compute_laplace_std(
                 self._hessian_diagonal(self.pre_transformation)
             )
+
+    def _sampler_generator(self):
+        seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _run_nuts(self):
+        """The full posterior by NUTS; the draws' mean and std (ddof 0)
+        become the latents and their stds.
+
+        The chains start at the L-BFGS MAP, where the potential is
+        zero-centred, as ``sample_density_posterior`` does for a fitted
+        estimator.  The JAX package's estimator path starts them at the
+        warm start and does not centre (ROADMAP Queue 3): there the loss
+        is ~1e7 at the bench shape against ~4e4 at the MAP, and centring
+        at the warm start would leave the posterior's potential at ~1e7,
+        whose float32 rounding froze NUTS on the H100 (step size 1e-5,
+        every tree at the depth cap)."""
+        opts = {
+            "num_warmup": max(self.n_iter, 200),
+            "num_samples": max(self.n_iter, 200),
+            "num_chains": 4,
+            "target_accept": 0.8,
+            "max_tree_depth": 10,
+            "initial_step_size": 0.1,
+        }
+        opts.update({k: v for k, v in self.sampler_options.items() if k in _NUTS_OPTION_KEYS})
+        precondition = opts.pop("precondition", None)
+        z0 = minimize_lbfgs(self._value_and_grad, self.initial_value).pre_transformation
+        potential, _ = zero_centered_potential(z0, *self._loss_args)
+        if precondition == "hessian":
+            hessian = lambda z: density_hessian(z, *self._loss_args)  # noqa: E731
+            z_map, _, _ = newton_polish(potential, hessian, z0)
+            T = precondition_transform(hessian_cholesky(hessian(z_map), self.jitter))
+            potential = preconditioned_potential(potential, T, z_map)
+            z0 = torch.zeros_like(z_map)
+        for key in ("num_warmup", "num_samples", "num_chains", "max_tree_depth"):
+            opts[key] = int(opts[key])
+        start = time.perf_counter()
+        result = run_mcmc(potential, z0, self._sampler_generator(), **opts)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.sampling_time = time.perf_counter() - start
+        if precondition == "hessian":
+            result = result._replace(samples=unwhiten_samples(result.samples, T, z_map))
+        flat = result.samples.reshape(-1, result.samples.shape[-1])
+        self.pre_transformation = flat.mean(dim=0)
+        self.pre_transformation_std = flat.std(dim=0, correction=0)
+        self.posterior_samples = result.samples
+        self.mcmc_result = result
+        self.losses = result.potential.reshape(-1)
+        # the north-star throughput metric: effective samples per second
+        self.ess = effective_sample_size(result.samples)
+        self.ess_per_second = float(self.ess.min() / self.sampling_time)
+        logger.info(
+            "NUTS: %d draws in %.2fs; ESS min/median %.0f/%.0f "
+            "(%.1f effective samples/s, min-ESS basis).",
+            flat.shape[0], self.sampling_time, float(self.ess.min()),
+            float(np.median(self.ess)), self.ess_per_second,
+        )
+
+    def _run_smc(self):
+        """The posterior by SMC from the prior (or, with ``start:
+        "laplace"``, from the diagonal Laplace Gaussian at the L-BFGS MAP);
+        the particles' mean and std (ddof 0) become the latents and their
+        stds."""
+        opts = {"num_particles": 1024}
+        opts.update({k: v for k, v in self.sampler_options.items() if k in _SMC_OPTION_KEYS})
+        for key in _INT_SAMPLER_OPTION_KEYS & set(opts):
+            opts[key] = int(opts[key])
+        start = opts.pop("start", "prior")
+        if start == "laplace":
+            loglik, prior_kwargs = laplace_start(
+                make_density_value_and_grad_batch(*self._loss_args), self.initial_value,
+                self._hessian_diagonal,
+            )
+        else:
+            loglik, prior_kwargs = make_density_loglik_batch(*self._loss_args), {}
+        result = run_smc(loglik, int(self.initial_value.shape[0]), self._sampler_generator(),
+                         dtype=self.dtype, **prior_kwargs, **opts)
+        self.pre_transformation = result.particles.mean(dim=0)
+        self.pre_transformation_std = result.particles.std(dim=0, correction=0)
+        self.posterior_samples = result.particles
+        self.smc_result = result
+        self.losses = [-result.log_evidence]
 
     def _prepare_attribute(self, attribute):
         """Lazy attribute computation via the ``_compute_<attr>`` convention."""

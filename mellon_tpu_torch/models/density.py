@@ -3,10 +3,11 @@
 ``DensityEstimator().fit_predict(x)`` runs the main path: 1-NN distances and
 their repair, the d/mu/ls heuristics, k-means landmarks, the landmark
 Cholesky (pruned when singular at f32), L = k(x, xu) Lp⁻ᵀ, the ridge warm
-start, the latents' fit (L-BFGS by default, or adam, or ADVI) and
-f = L z + μ.  ``.predict`` builds the landmark conditional predictor
-lazily; with ``predictor_with_uncertainty=True`` it also carries the
-latents' std (from ADVI, or else the diagonal Laplace approximation).
+start, the latents' fit (L-BFGS by default, or adam, ADVI, or the
+posterior mean of NUTS or SMC draws) and f = L z + μ.  ``.predict`` builds
+the landmark conditional predictor lazily; with
+``predictor_with_uncertainty=True`` it also carries the latents' std (from
+ADVI, NUTS or SMC, or else the diagonal Laplace approximation).
 """
 
 import logging
@@ -20,6 +21,7 @@ from ..inference.losses import (
     make_density_loss_batch,
     make_density_value_and_grad,
 )
+from ..inference.mcmc import BF16_SAMPLING
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..parameters import DEFAULT_RANDOM_SEED, compute_d, compute_initial_value, compute_mu
 from ..utils.util import DEFAULT_JITTER
@@ -51,10 +53,14 @@ logger = logging.getLogger("mellon_tpu_torch")
 class DensityEstimator(BaseEstimator):
     """Bayesian log-density model with a GP prior and a 1-NN likelihood.
 
-    Takes the arguments of ``mellon_tpu.DensityEstimator`` but
-    ``sampler_options``, plus ``device`` (default ``"cuda"``) and ``dtype``
-    (default ``torch.float32``).  ``landmarks=`` fixes the landmarks
-    instead of drawing them by k-means.  ``jit`` is accepted and ignored.
+    Takes the arguments of ``mellon_tpu.DensityEstimator``, plus
+    ``device`` (default ``"cuda"``) and ``dtype`` (default
+    ``torch.float32``).  ``landmarks=`` fixes the landmarks instead of
+    drawing them by k-means.  ``jit`` is accepted and ignored, and so is
+    ``sampler_options["steps_per_call"]``.  ``optimizer="nuts"`` or
+    ``"smc"`` keeps the posterior draws (``posterior_samples``,
+    ``mcmc_result`` or ``smc_result``; NUTS also ``sampling_time``,
+    ``ess`` and ``ess_per_second``), seeded from ``random_state``.
     """
 
     def __init__(
@@ -83,9 +89,12 @@ class DensityEstimator(BaseEstimator):
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
         precision=None,
+        sampler_options=None,
         device=None,
         dtype=None,
     ):
+        if precision == "bf16" and optimizer in ("nuts", "smc"):
+            raise NotImplementedError(BF16_SAMPLING)
         if precision not in (None, "f32"):
             raise NotImplementedError(
                 f"precision={precision!r} is not ported to mellon_tpu_torch yet "
@@ -114,6 +123,7 @@ class DensityEstimator(BaseEstimator):
             jit=jit,
             check_rank=check_rank,
             random_state=random_state,
+            sampler_options=sampler_options,
             device=device,
             dtype=dtype,
         )
@@ -174,6 +184,7 @@ class DensityEstimator(BaseEstimator):
     def _compute_loss_func(self):
         # the forms the optimizers and the Laplace approximation take
         args = (self.L, self.nn_distances, self.d, self.mu)
+        self._loss_args = args
         self._value_and_grad = make_density_value_and_grad(*args)
         self._loss_batch = make_density_loss_batch(*args)
         self._hessian_diagonal = lambda z: density_hessian_diagonal(z, *args)

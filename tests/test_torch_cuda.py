@@ -14,6 +14,10 @@ import pytest
 import torch
 
 import mellon_tpu_torch
+from mellon_tpu_torch.inference.diagnostics import summarize
+from mellon_tpu_torch.inference.losses import make_density_value_and_grad_batch
+from mellon_tpu_torch.inference.mcmc import run_mcmc
+from mellon_tpu_torch.inference.samplers import Draws, hmc_init, hmc_kernel, nuts_kernel
 from mellon_tpu_torch.ops.hopper_kernels import (
     BUILD_DIR, NVCC_FLAGS, _nvcc, matern52_gram, matern52_gram_reference,
 )
@@ -203,3 +207,65 @@ def test_uncertainty_at_200k_points(card_predictor):
     u, mc = pred.uncertainty(xq), pred.mean_covariance(xq)
     assert u.shape == (200_000,) and torch.isfinite(u).all()
     assert torch.isfinite(pred.covariance(xq)).all() and (mc >= 0).all()
+
+
+class _HostDraws(Draws):
+    """The samplers' draws from a CPU generator, moved to the operands'
+    device: the same numbers on the card as on the CPU."""
+
+    def normal(self, shape, like):
+        return torch.randn(shape, generator=self.generator, dtype=like.dtype).to(like.device)
+
+    def uniform(self, shape, like):
+        return torch.rand(shape, generator=self.generator, dtype=like.dtype).to(like.device)
+
+
+@pytest.mark.parametrize("kind", ["nuts", "hmc"])
+def test_transition_on_card_matches_cpu(cuda, kind):
+    """One NUTS (depth 8) or HMC (16 leapfrogs) transition of 8 chains on a
+    float64 density potential (2,000 cells, 64 latents), on the card and on
+    the CPU with the same draws: states, accept_prob to 1e-10 relative,
+    step counts and divergences equal."""
+    rng = np.random.RandomState(28)
+    L, nn, Z0 = rng.randn(2000, 64) * 0.1, np.exp(rng.randn(2000) * 0.3 - 1), rng.randn(8, 64) * 0.3
+    out = []
+    for device in ("cpu", cuda):
+        t = lambda a: torch.tensor(a, dtype=torch.float64, device=device)  # noqa: E731
+        vg = make_density_value_and_grad_batch(t(L), t(nn), 2.0, -1.0)
+        kernel = nuts_kernel(vg, max_tree_depth=8) if kind == "nuts" else hmc_kernel(vg, num_steps=16)
+        state, info = kernel(hmc_init(vg, t(Z0)), _HostDraws(torch.Generator().manual_seed(0)),
+                             t(0.05), t(np.ones(64)))
+        out.append([v.cpu() for v in (*state, *info)])
+    for got, want in zip(out[1], out[0]):
+        if want.dtype.is_floating_point:
+            assert torch.allclose(got, want, rtol=1e-10, atol=1e-12)
+        else:
+            assert torch.equal(got, want)
+
+
+def test_nuts_on_card_recovers_gaussian(cuda):
+    """run_mcmc on the card (a CUDA generator) recovers the correlated
+    Gaussian with the bars of tests/test_mcmc.py:37-52."""
+    cov = torch.tensor([[2.0, 0.9], [0.9, 1.0]], dtype=torch.float64, device=cuda)
+    prec, mean = torch.linalg.inv(cov), torch.tensor([1.0, -1.0], dtype=torch.float64, device=cuda)
+
+    def value_and_grad(Z):
+        d = Z - mean
+        return 0.5 * torch.sum((d @ prec) * d, dim=1), d @ prec
+
+    res = run_mcmc(value_and_grad, torch.zeros(2, dtype=torch.float64, device=cuda),
+                   torch.Generator(device=cuda).manual_seed(0), num_warmup=500, num_samples=1000)
+    s = summarize(res.samples)
+    np.testing.assert_allclose(s["mean"], mean.cpu().numpy(), atol=0.1)
+    np.testing.assert_allclose(s["std"], np.sqrt(np.diag(cov.cpu().numpy())), rtol=0.1)
+    assert np.all(s["rhat"] < 1.05) and np.all(s["ess"] > 200) and int(res.diverging.sum()) == 0
+
+
+def test_sampler_refuses_a_generator_on_another_device(cuda):
+    """A CPU generator with operands on the card raises; nothing is copied
+    across."""
+    def value_and_grad(Z):
+        return 0.5 * torch.sum(Z * Z, dim=1), Z
+
+    with pytest.raises(ValueError, match="generator"):
+        run_mcmc(value_and_grad, torch.zeros(3, device=cuda), torch.Generator(), num_warmup=2, num_samples=2)
