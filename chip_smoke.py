@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive mellon_tpu_torch's density paths once on one NVIDIA GPU.
+"""Drive mellon_tpu_torch's estimators once on one NVIDIA GPU.
 
 Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3, 5-8 and 11-13) runs with the kernel's launch count set to 0
+Each path (3, 5-8 and 11-17) runs with the kernel's launch count set to 0
 just before it and read just after, and fails if the kernel was not
 launched; the operands of every kernel call the covariance module makes on
 these paths are kept for phase 4.
@@ -80,7 +80,30 @@ these paths are kept for phase 4.
    stages, β, the log evidence ± its across-sweep std, the acceptance
    range, held to β = 1, a finite evidence and corr(particle-mean log
    density, the main path's) >= POSTERIOR_MIN_CORR; the particles'
-   predictor at the 1,000 points (finite).
+   predictor at the 1,000 points (finite);
+14. function: FunctionEstimator(sigma=0.1, obs_variance=True) on the
+   benchmark cells and FUNCTION_OUTPUTS gene trends (smooth functions of
+   the cells plus N(0, 0.1²) noise, from GENE_SEED), the sparse type on
+   5,000 k-means landmarks pruned at float32: the prediction at the 1,000
+   points, the leverage at every cell and the observation variance at the
+   1,000 points, then the same with a per-feature σ on the first
+   PER_FEATURE_OUTPUTS outputs (one σ per output, on the first fit's
+   landmarks and factor); each within FUNCTION_F64_REL of a float64 fit
+   on the card on the same landmarks and length scale, the leverage
+   within [0, 1];
+15. function full: FunctionEstimator(sigma=1.0, n_landmarks=0,
+   obs_variance=True) on the first FULL_CELLS cells and the same outputs
+   (the full GP type), held to float64 in the same way;
+16. dimensionality: DimensionalityEstimator(predictor_with_uncertainty=True)
+   on the benchmark cells: the local dimensions and log densities at the
+   cells, predict and predict_density (and their uncertainty) at the 1,000
+   points; the local dimensions finite and in (0, 2d], and within
+   DIMENSIONALITY_MIN_CORR of a float64 fit on the same landmarks;
+17. density full: DensityEstimator(predictor_with_uncertainty=True) on the
+   first FULL_CELLS cells (the full GP type: an L-BFGS MAP over as many
+   latents), d_method="fractal" on the same cells, and the README's first
+   example (100 x 10 normal cells); each within DENSITY_FULL_MIN_CORR of
+   its float64 fit on the card.
 
 The line before the last is the JSON kernel report (``launches``: over
 all paths; ``ms``, ``plain_ms`` and ``bound_ms``: the kernel's, the plain
@@ -142,6 +165,23 @@ NUTS_OPTIONS = dict(num_warmup=100, num_samples=50)
 PRECOND = dict(num_chains=64, num_warmup=100, num_samples=200)
 SMC = dict(num_particles=1024, start="laplace", num_sweeps=2)
 TRACE_TRANSITIONS = 10
+# the FunctionEstimator, DimensionalityEstimator and full-GP paths: the
+# gene-trend outputs, the cells of the full type (the most it picks by
+# default: min(n, 5,000) landmarks), and their float32-vs-float64 bars, set
+# from a CPU rehearsal (PERF.md): max |f32 - f64| / max |f64| per output,
+# and the correlation of the fitted functions at the cells
+FUNCTION_OUTPUTS = 2000
+# the per-feature σ run takes one leverage factorization per output, twice
+# (the HC3 step and leverage()), each in float32 and then, where float32
+# leaves [0, 1] as it does at this shape, in float64: 18.6 ms per output on
+# the H100 (PERF.md), so it runs on the first PER_FEATURE_OUTPUTS outputs
+PER_FEATURE_OUTPUTS = 500
+FUNCTION_SIGMA = 0.1
+GENE_SEED = 5
+FULL_CELLS = 5000
+FUNCTION_F64_REL = {"predict": 0.05, "leverage": 1e-3, "obs_variance": 0.1}
+DIMENSIONALITY_MIN_CORR = {"local_dim_x": 0.99, "log_density_x": 0.999}
+DENSITY_FULL_MIN_CORR = 0.999
 
 # H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
 # peak rates outside the tensor cores
@@ -732,6 +772,181 @@ def smc_path(mt, est_map, x_new):
     return stats
 
 
+def gene_trends(x, p, seed=GENE_SEED):
+    """(n, p) float32 outputs: smooth functions of the standardized cells,
+    sin(z·w + b) with w ~ N(0, 0.25/d), plus N(0, 0.1²) noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    z = (x - x.mean(axis=0)) / x.std(axis=0)
+    W = rng.normal(scale=0.5 / math.sqrt(x.shape[1]), size=(x.shape[1], p))
+    b = rng.uniform(0, 2 * math.pi, size=p)
+    return (np.sin(z @ W + b) + 0.1 * rng.normal(size=(x.shape[0], p))).astype(np.float32)
+
+
+def function_fit(mt, x, Y, x_new, dtype, preset=None, **kwargs):
+    """A FunctionEstimator with obs_variance fitted on (x, Y): its
+    prediction at x_new, leverage at x and observation variance at x_new,
+    with the seconds of each.  ``preset`` sets prepared attributes (the
+    lazy chain computes only what is unset)."""
+    est = mt.FunctionEstimator(obs_variance=True, device=DEVICE, dtype=dtype, **kwargs)
+    for name, value in (preset or {}).items():
+        setattr(est, name, value)
+    x_new = x_new.to(dtype)
+    out, seconds = {}, {}
+    out["predict"], seconds["fit_predict"] = synced_seconds(lambda: est.fit_predict(x, Y, Xnew=x_new))
+    out["leverage"], seconds["leverage"] = synced_seconds(est.leverage)
+    out["obs_variance"], seconds["obs_variance"] = synced_seconds(lambda: est.get_obs_variance(x_new))
+    if not finite(*out.values()):
+        raise AssertionError(f"the FunctionEstimator's outputs are not finite ({dtype})")
+    lev = out["leverage"]
+    if not (float(lev.min()) >= 0.0 and float(lev.max()) <= 1.0):
+        raise AssertionError(f"leverage outside [0, 1]: [{float(lev.min())}, {float(lev.max())}]")
+    return est, out, seconds
+
+
+def function_pair(mt, label, x, Y, x_new, sigma, preset=None, **kwargs):
+    """float32 and float64 fits (the float64 on the float32 fit's landmarks
+    and length scale): the gaps and the float32 seconds."""
+    import torch
+
+    est, out, seconds = function_fit(mt, x, Y, x_new, torch.float32, preset, sigma=sigma, **kwargs)
+    same = dict(ls=est.ls)
+    if est.landmarks is not None:
+        same["landmarks"] = est.landmarks.double()
+    else:
+        same["n_landmarks"] = 0
+    sigma64 = sigma.double() if isinstance(sigma, torch.Tensor) else sigma
+    _, out64, seconds64 = function_fit(mt, x, Y, x_new, torch.float64, sigma=sigma64, **same)
+    gaps = {k: relative_gap(out[k], out64[k]) for k in out}
+    lev = out["leverage"]
+    stats = {
+        "gp_type": est.gp_type.value, "cells": x.shape[0], "outputs": Y.shape[1],
+        "landmarks": None if est.landmarks is None else int(est.landmarks.shape[0]),
+        "sigma": "per feature" if isinstance(sigma, torch.Tensor) else sigma,
+        "seconds": seconds, "seconds_f64": seconds64,
+        "leverage_range": [float(lev.min()), float(lev.max())],
+        "leverage_shape": list(lev.shape), "f32_vs_f64": gaps,
+    }
+    log(f"[{label}] " + json.dumps(stats))
+    if not all(gaps[k] <= FUNCTION_F64_REL[k] for k in gaps):
+        raise AssertionError(f"{label}: float32 disagrees with float64: {gaps} (bars {FUNCTION_F64_REL})")
+    return est, stats
+
+
+def function_path(mt, x_np, x_new, Y):
+    """FunctionEstimator(sigma=FUNCTION_SIGMA) on the benchmark cells, with
+    a scalar and then a per-feature σ on the first PER_FEATURE_OUTPUTS
+    outputs (the second on the first's pruned landmarks, their factor and
+    the length scale)."""
+    import numpy as np
+    import torch
+
+    est, scalar = function_pair(mt, "function", x_np, Y, x_new, FUNCTION_SIGMA)
+    if est.gp_type.value != "sparse_cholesky":
+        raise AssertionError(f"the function path took gp_type {est.gp_type}")
+    Y = Y[:, :PER_FEATURE_OUTPUTS]
+    sigma = torch.as_tensor(0.05 + 0.1 * np.random.default_rng(GENE_SEED).random(Y.shape[1]),
+                            dtype=torch.float32, device=DEVICE)
+    _, per_feature = function_pair(mt, "function", x_np, Y, x_new, sigma, preset={"Lp": est.Lp},
+                                   landmarks=est.landmarks, ls=est.ls)
+    return {"scalar": scalar, "per_feature": per_feature}
+
+
+def function_full_path(mt, x_np, x_new, Y):
+    """FunctionEstimator(sigma=1.0, n_landmarks=0) on the first FULL_CELLS
+    cells: the full GP type."""
+    est, stats = function_pair(mt, "function full", x_np[:FULL_CELLS], Y[:FULL_CELLS], x_new, 1.0,
+                               n_landmarks=0)
+    if est.gp_type.value != "full":
+        raise AssertionError(f"the full function path took gp_type {est.gp_type}")
+    return stats
+
+
+def dimensionality_path(mt, x_np, x_new):
+    """DimensionalityEstimator(predictor_with_uncertainty=True) on the
+    benchmark cells, against a float64 fit on its landmarks and length
+    scale."""
+    import numpy as np
+    import torch
+
+    def fit(dtype, **kwargs):
+        est = mt.DimensionalityEstimator(predictor_with_uncertainty=True, device=DEVICE,
+                                         dtype=dtype, **kwargs)
+        _, seconds = synced_seconds(lambda: est.fit(x_np))
+        points = x_new.to(dtype)
+        out = {"local_dim_x": est.local_dim_x, "log_density_x": est.log_density_x,
+               "predict": est.predict(points), "predict_density": est.predict_density(points),
+               "uncertainty": est.predict.uncertainty(points),
+               "density_uncertainty": est.predict_density.uncertainty(points)}
+        return est, out, seconds
+
+    est, out, seconds = fit(torch.float32)
+    _, out64, seconds64 = fit(torch.float64, landmarks=est.landmarks.double(), ls=est.ls)
+    corr = {k: log_density_corr(out[k], out64[k]) for k in ("local_dim_x", "log_density_x",
+                                                             "predict", "predict_density")}
+    d = x_np.shape[1]
+    dims = torch.cat([out["local_dim_x"], out["predict"]])
+    stats = {
+        "gp_type": est.gp_type.value, "landmarks": int(est.landmarks.shape[0]),
+        "lbfgs_steps": est.opt_state.n_steps, "loss": est.opt_state.loss,
+        "seconds": seconds, "seconds_f64": seconds64,
+        "local_dim_range": [float(dims.min()), float(dims.max())],
+        "local_dim_median": float(np.median(out["local_dim_x"].double().cpu().numpy())),
+        "raw_local_dim_median": float(est.d.double().median()),
+        "corr_f32_f64": corr,
+    }
+    log("[dimensionality] " + json.dumps(stats))
+    log(f"[dimensionality] bars: local dimensions finite and in (0, {2 * d}], corr with float64 "
+        f">= {json.dumps(DIMENSIONALITY_MIN_CORR)}")
+    ok = (finite(*out.values()) and float(dims.min()) > 0 and float(dims.max()) <= 2 * d
+          and all(corr[k] >= v for k, v in DIMENSIONALITY_MIN_CORR.items()))
+    if not ok:
+        raise AssertionError(f"dimensionality failed its bars: {stats}")
+    return stats
+
+
+def density_full_path(mt, x_np, x_new):
+    """The density model's full GP type: DensityEstimator(
+    predictor_with_uncertainty=True) on FULL_CELLS cells, d_method=
+    "fractal" on the same cells and the README's 100 x 10 fit, each against
+    its float64 fit on the card."""
+    import numpy as np
+    import torch
+
+    readme = np.random.default_rng(0).normal(size=(100, 10))
+    cases = {
+        "uncertainty": (x_np[:FULL_CELLS], dict(predictor_with_uncertainty=True)),
+        "fractal": (x_np[:FULL_CELLS], dict(d_method="fractal")),
+        "readme": (readme, {}),
+    }
+    stats = {}
+    for name, (x, kwargs) in cases.items():
+        fits = {}
+        for dtype in (torch.float32, torch.float64):
+            est = mt.DensityEstimator(device=DEVICE, dtype=dtype, **kwargs)
+            ld, seconds = synced_seconds(lambda: est.fit_predict(x))
+            fits[dtype] = (est, ld, seconds)
+        est, ld, seconds = fits[torch.float32]
+        if est.gp_type.value != "full" or not finite(ld):
+            raise AssertionError(f"density full {name}: gp_type {est.gp_type}, finite {finite(ld)}")
+        entry = {"cells": x.shape[0], "d": est.d, "seconds": seconds,
+                 "seconds_f64": fits[torch.float64][2],
+                 "corr_f32_f64": log_density_corr(ld, fits[torch.float64][1]),
+                 "lbfgs_steps": est.opt_state.n_steps}
+        if name == "uncertainty":
+            points = x_new
+            u, entry["uncertainty_seconds"] = synced_seconds(lambda: est.predict.uncertainty(points))
+            if not finite(u, est.predict(points)):
+                raise AssertionError("density full: the predictor's uncertainty is not finite")
+        stats[name] = entry
+    log("[density full] " + json.dumps(stats))
+    log(f"[density full] bars: full GP type, finite, corr with float64 >= {DENSITY_FULL_MIN_CORR}")
+    if not all(v["corr_f32_f64"] >= DENSITY_FULL_MIN_CORR for v in stats.values()):
+        raise AssertionError(f"density full failed its bars: {stats}")
+    return stats
+
+
 def wrapper_host_us(calls=1000, turns=4):
     """Host time of one ``matern52_gram`` call (checks, allocation, the
     ctypes call and the launch): a host clock over ``calls`` calls without
@@ -893,6 +1108,18 @@ def main():
     _, path_launches["nuts precond"] = counted_path(
         hk, "nuts precond", lambda: precond_path(mt, est, x_new))
     _, path_launches["smc"] = counted_path(hk, "smc", lambda: smc_path(mt, est, x_new))
+    # 14-17. the FunctionEstimator, the DimensionalityEstimator and the
+    # full GP type
+    Y = gene_trends(x_np, FUNCTION_OUTPUTS)
+    new_paths = {
+        "function": lambda: function_path(mt, x_np, x_new, Y),
+        "function full": lambda: function_full_path(mt, x_np, x_new, Y),
+        "dimensionality": lambda: dimensionality_path(mt, x_np, x_new),
+        "density full": lambda: density_full_path(mt, x_np, x_new),
+    }
+    for label, run in new_paths.items():
+        (_, path_launches[label]), seconds = synced_seconds(lambda: counted_path(hk, label, run))
+        log(f"[{label}] path seconds {seconds!r}")
     stop_recording()
     launches = sum(path_launches.values())
     if len(calls) != launches:

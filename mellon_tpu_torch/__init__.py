@@ -1,12 +1,16 @@
-"""mellon_tpu_torch: the density estimator of mellon_tpu in PyTorch and CUDA.
+"""mellon_tpu_torch: the estimators of mellon_tpu in PyTorch and CUDA.
 
 A port of ``mellon_tpu`` (JAX, TPU) to PyTorch on an NVIDIA H100.  It runs
-``DensityEstimator(...).fit(x)`` with L-BFGS, adam or ADVI and the
-optional diagonal Laplace uncertainty, or with the posterior samplers
-(multi-chain NUTS and HMC, Hessian-preconditioned sampling, SMC, and their
-diagnostics in :mod:`.inference`), and its predictor: the mean, its
-covariance and uncertainty, gradient and Hessian, and JSON in the format
-mellon_tpu reads.  The Matern-5/2 covariance tile is a hand-written CUDA
+``DensityEstimator(...).fit(x)`` on the full or the sparse GP with
+L-BFGS, adam or ADVI and the optional diagonal Laplace uncertainty, or
+with the posterior samplers (multi-chain NUTS and HMC,
+Hessian-preconditioned sampling, SMC, and their diagnostics in
+:mod:`.inference`); ``FunctionEstimator`` (gene trends: the conditional
+mean under scalar, per-feature or per-observation noise, the leverage and
+the observation variance) and ``DimensionalityEstimator`` (the local
+dimensionality jointly with the density); and their predictors: the mean,
+its covariance and uncertainty, gradient and Hessian, and JSON in the
+format mellon_tpu reads.  The Matern-5/2 covariance tile is a hand-written CUDA
 kernel for ``sm_90a`` (``csrc/matern52_tile.cu``), built from source at
 first use.  Importing the package turns TF32 off (see :mod:`.config`).
 """
@@ -14,9 +18,18 @@ first use.  Importing the package turns TF32 off (see :mod:`.config`).
 from . import config
 from .config import DEFAULT_DEVICE, DEFAULT_DTYPE
 from .convert import state_from_jax
-from .inference.conditionals import LandmarksConditionalCholesky
-from .inference.predictors import Predictor
+from .inference.conditionals import (
+    ExpFullConditional,
+    ExpLandmarksConditional,
+    ExpLandmarksConditionalCholesky,
+    FullConditional,
+    LandmarksConditional,
+    LandmarksConditionalCholesky,
+)
+from .inference.predictors import ExpPredictor, Predictor
 from .models.density import DensityEstimator
+from .models.dimensionality import DimensionalityEstimator
+from .models.function import FunctionEstimator
 from .ops.kernels import (
     Covariance,
     Exponential,
@@ -28,7 +41,7 @@ from .ops.kernels import (
 )
 from .utils.util import GaussianProcessType
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"
 
 __all__ = [
     "__version__",
@@ -37,9 +50,17 @@ __all__ = [
     "DEFAULT_DTYPE",
     "Covariance",
     "DensityEstimator",
+    "DimensionalityEstimator",
+    "ExpFullConditional",
+    "ExpLandmarksConditional",
+    "ExpLandmarksConditionalCholesky",
+    "ExpPredictor",
     "Exponential",
     "ExpQuad",
+    "FullConditional",
+    "FunctionEstimator",
     "GaussianProcessType",
+    "LandmarksConditional",
     "LandmarksConditionalCholesky",
     "Linear",
     "Matern32",

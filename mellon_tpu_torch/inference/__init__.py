@@ -1,4 +1,5 @@
-"""Loss, optimizers, predictors and posterior samplers of the density model."""
+"""Losses, optimizers, conditional predictors and the density model's
+posterior samplers."""
 
 from .diagnostics import effective_sample_size, split_rhat, summarize
 from .mcmc import MCMCResult, resume_mcmc, run_mcmc, sample_density_posterior

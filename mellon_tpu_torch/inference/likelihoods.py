@@ -1,5 +1,6 @@
-"""Prior and likelihood of the whitened sparse-GP density model
-(counterpart of ``mellon_tpu/inference/likelihoods.py``)."""
+"""Priors and likelihoods of the whitened sparse-GP models: the density
+model's 1-NN likelihood and the dimensionality model's k-NN Poisson
+likelihood (counterpart of ``mellon_tpu/inference/likelihoods.py``)."""
 
 import math
 
@@ -33,5 +34,29 @@ def nearest_neighbors_likelihood(r, d):
 
     def logpdf(log_density):
         return torch.sum((log_density + Vdr) - torch.exp(log_density + V))
+
+    return logpdf
+
+
+def poisson_terms(distances):
+    """The per-cell, per-rank constants of the k-NN Poisson likelihood:
+    ``(ldist, counts, lgamma(counts))`` with ldist = log(sorted distances)
+    + log(π)/2 (n, k) and counts 1..k.  The distances are sorted here,
+    once."""
+    k = distances.shape[1]
+    counts = torch.arange(1, k + 1, dtype=distances.dtype, device=distances.device)
+    ldist = torch.log(torch.sort(distances, dim=-1).values) + math.log(math.pi) / 2
+    return ldist, counts, torch.lgamma(counts)
+
+
+def poisson_likelihood(distances):
+    """Joint k-NN Poisson likelihood of (local dimension, log density):
+    the counts 1..k against the expected counts in the spheres through the
+    k nearest neighbours, log-volume V(d) = d·ldist − lgamma(d/2 + 1)."""
+    ldist, counts, lgamma_counts = poisson_terms(distances)
+
+    def logpdf(dims, log_dens):
+        pred = log_dens[:, None] + dims[:, None] * ldist - torch.lgamma(dims[:, None] / 2 + 1)
+        return torch.sum(pred * counts - torch.exp(pred) - lgamma_counts)
 
     return logpdf

@@ -1,5 +1,5 @@
-"""Whitened transform and the density loss with its analytic gradient
-(counterpart of ``mellon_tpu/inference/losses.py``).
+"""Whitened transforms and the density and dimensionality losses with
+their analytic gradients (counterpart of ``mellon_tpu/inference/losses.py``).
 
 The loss is the negative log posterior of z with f = L z + μ:
 
@@ -13,13 +13,31 @@ value-and-grad kernel is ROADMAP kernel K4).  The same closed form gives
 the Hessian and its diagonal (the Laplace approximation, the samplers'
 preconditioner); ADVI, the samplers' chains and SMC's particles evaluate
 the loss at a batch of latent vectors at once.
+
+The dimensionality model stacks two latent vectors, z = (z₀, z₁) of shape
+(2, k): the log local dimension a = L z₀ + μ_dim (dims = eᵃ) and the log
+density b = L z₁ + μ_dens.  With the sorted k-NN log-distances ℓᵢⱼ (plus
+log(π)/2), the counts cⱼ = j and pᵢⱼ = bᵢ + dimsᵢ·ℓᵢⱼ − lgamma(dimsᵢ/2 + 1):
+
+    loss(z) = ½‖z‖² + log 2π − Σᵢⱼ [pᵢⱼ cⱼ − e^{pᵢⱼ} − lgamma(cⱼ)]
+
+(the prior's constant uses 2, the first axis of z, as the JAX package
+does).  With gᵢⱼ = cⱼ − e^{pᵢⱼ} and qᵢⱼ = ℓᵢⱼ − ½ψ(dimsᵢ/2 + 1), the
+gradient is z₀ − Lᵀ(dims·Σⱼ gq) and z₁ − Lᵀ Σⱼ g; these functions take z
+flattened to (2k,), as the optimizers do.
 """
 
 import math
 
 import torch
 
-from .likelihoods import nearest_neighbors_likelihood, nearest_neighbors_terms, normal_prior
+from .likelihoods import (
+    nearest_neighbors_likelihood,
+    nearest_neighbors_terms,
+    normal_prior,
+    poisson_likelihood,
+    poisson_terms,
+)
 
 
 def _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term):
@@ -139,11 +157,106 @@ def density_hessian(z, L, nn_distances, d, mu):
     return H
 
 
+def _dimensionality_terms(Z, L, ldist, counts, lgamma_counts, mu_dim, mu_dens):
+    """dims (n, S), p (n, k, S) and e^p at the S columns of the (2k, S)
+    flattened latents Z."""
+    k = L.shape[1]
+    dims = torch.exp(L @ Z[:k] + mu_dim)
+    log_dens = L @ Z[k:] + mu_dens
+    pred = log_dens[:, None] + dims[:, None] * ldist[..., None] - torch.lgamma(dims / 2 + 1)[:, None]
+    return dims, pred, torch.exp(pred)
+
+
+def _dimensionality_loglik(pred, E, counts, lgamma_counts):
+    return torch.sum(pred * counts[:, None] - E - lgamma_counts[:, None], dim=(0, 1))
+
+
+def _dimensionality_prior(Z):
+    # the JAX package's constant: z.shape[0] of the (2, k) latents, i.e. 2
+    return -(1 / 2) * torch.sum(Z * Z, dim=0) - math.log(2 * math.pi)
+
+
+def make_dimensionality_value_and_grad(L, distances, mu_dim, mu_dens):
+    """``z -> (loss, gradient)`` of the dimensionality model at the
+    flattened latents z (2k,), with the distances sorted once."""
+    ldist, counts, lgamma_counts = poisson_terms(distances)
+
+    def value_and_grad(z):
+        k = L.shape[1]
+        Z = z[:, None]
+        dims, pred, E = _dimensionality_terms(Z, L, ldist, counts, lgamma_counts, mu_dim, mu_dens)
+        loss = -(_dimensionality_prior(Z) + _dimensionality_loglik(pred, E, counts, lgamma_counts))
+        g = counts - E[..., 0]
+        u = g.sum(dim=1)
+        psi = torch.digamma(dims[:, 0] / 2 + 1)
+        v = torch.sum(g * ldist, dim=1) - 0.5 * psi * u
+        grad = z - torch.cat([L.T @ (v * dims[:, 0]), L.T @ u])
+        return loss[0], grad
+
+    return value_and_grad
+
+
+def make_dimensionality_loss_batch(L, distances, mu_dim, mu_dens):
+    """``Z -> losses``: the dimensionality loss at each row of the (S, 2k)
+    flattened latents, shape (S,); autograd gives the gradient (ADVI)."""
+    ldist, counts, lgamma_counts = poisson_terms(distances)
+
+    def loss_batch(Z):
+        Zt = Z.T
+        _, pred, E = _dimensionality_terms(Zt, L, ldist, counts, lgamma_counts, mu_dim, mu_dens)
+        return -(_dimensionality_prior(Zt) + _dimensionality_loglik(pred, E, counts, lgamma_counts))
+
+    return loss_batch
+
+
+def dimensionality_hessian_diagonal(z, L, distances, mu_dim, mu_dens):
+    """Diagonal of the dimensionality loss's Hessian at the flattened z
+    (2k,) in closed form: 1 + (L∘L)ᵀ w per latent row, with
+    w₁ = Σⱼ e^p for the density row and
+    w₀ = dims²·(Σⱼ e^p q² + ¼ψ′(dims/2 + 1)·Σⱼ g) − dims·Σⱼ g q for the
+    dimension row, summed over :data:`HESSIAN_CHUNK_ROWS` rows of L at a
+    time (the JAX package takes chunked Hessian-vector products)."""
+    ldist, counts, lgamma_counts = poisson_terms(distances)
+    k = L.shape[1]
+    diag = torch.ones_like(z)
+    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
+        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        block = ldist[start : start + HESSIAN_CHUNK_ROWS]
+        dims, pred, E = _dimensionality_terms(
+            z[:, None], rows, block, counts, lgamma_counts, mu_dim, mu_dens
+        )
+        dims, E = dims[:, 0], E[..., 0]
+        g = counts - E
+        q = block - 0.5 * torch.digamma(dims / 2 + 1)[:, None]
+        trigamma = torch.special.polygamma(1, dims / 2 + 1)
+        w0 = dims * dims * (torch.sum(E * q * q, dim=1) + 0.25 * trigamma * g.sum(dim=1))
+        w0 = w0 - dims * torch.sum(g * q, dim=1)
+        squares = rows * rows
+        diag = diag + torch.cat([w0 @ squares, E.sum(dim=1) @ squares])
+    return diag
+
+
+def dimensionality_loss(z, L, distances, mu_dim, mu_dens):
+    """Negative log posterior of the dimensionality model at z (2, k), a
+    0-d tensor; same arguments as
+    ``mellon_tpu.inference.losses.dimensionality_loss``."""
+    return make_dimensionality_value_and_grad(L, distances, mu_dim, mu_dens)(z.reshape(-1))[0]
+
+
 def compute_transform(mu, L):
     """z -> f = L z + mu."""
 
     def transform(z):
         return L @ z + mu
+
+    return transform
+
+
+def compute_dimensionality_transform(mu_dim, mu_dens, L):
+    """z (2, k) -> (exp(L z₀ + mu_dim), L z₁ + mu_dens)."""
+
+    def transform(z):
+        return torch.exp(L @ z[0] + mu_dim), L @ z[1] + mu_dens
 
     return transform
 
@@ -159,6 +272,25 @@ def compute_loss_func(nn_distances, d, transform, k):
     return loss_func
 
 
+def compute_dimensionality_loss_func(distances, transform, k):
+    """Closure form of the dimensionality loss, ``z (2, k') -> loss``, with
+    the JAX package's prior constant for ``k`` (the first axis of z)."""
+    prior = normal_prior(k)
+    likelihood = poisson_likelihood(distances)
+
+    def loss_func(z):
+        dims, log_dens = transform(z)
+        return -(prior(z) + likelihood(dims, log_dens))
+
+    return loss_func
+
+
 def compute_log_density_x(pre_transformation, transform):
     """Function values at the training points."""
     return transform(pre_transformation)
+
+
+def compute_parameter_cov_factor(pre_transformation_std, L):
+    """Left factor L·diag(std) of the mean function's covariance from the
+    latents' uncertainty."""
+    return L * pre_transformation_std[None, :]

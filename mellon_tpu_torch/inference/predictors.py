@@ -1,6 +1,8 @@
 """Predictor facade (counterpart of ``mellon_tpu/inference/predictors.py``):
-the conditional mean, its covariance and uncertainty, derivatives, and JSON
-in the format that the JAX package and the reference Mellon read.
+the conditional mean, its covariance and uncertainty, the leverage, the
+leave-one-out residuals and the observation variance, derivatives, and
+JSON in the format that the JAX package and the reference Mellon read.
+:class:`ExpPredictor` returns exp of the mean (the local dimensionality).
 
 A predictor written by mellon_tpu or the reference loads here, and one
 written here loads there: arrays are tagged ``"jax.numpy"``, classes are
@@ -19,6 +21,7 @@ import re
 import sys
 from abc import ABC, abstractmethod
 from datetime import datetime
+from functools import wraps
 from importlib import import_module
 
 import torch
@@ -37,10 +40,6 @@ PREDICT_CHUNK_SIZE = 200_000
 # files of the reference Mellon older than this lack n_obs and
 # _state_variables
 MIGRATION_VERSION = (1, 4, 0)
-_FUNCTION_ESTIMATOR = (
-    "not ported to mellon_tpu_torch yet (ROADMAP Queue 1, item 12: the "
-    "FunctionEstimator)."
-)
 
 
 def _chunked_rows(fn, x, chunk_size=PREDICT_CHUNK_SIZE):
@@ -73,6 +72,14 @@ class Predictor(ABC):
 
     @abstractmethod
     def _mean_covariance(self, x, diag=True):
+        ...
+
+    @abstractmethod
+    def _leverage(self, x, sigma):
+        ...
+
+    @abstractmethod
+    def _obs_variance(self, x):
         ...
 
     @property
@@ -154,13 +161,23 @@ class Predictor(ABC):
         return self._covariance(x, diag=False) + self._mean_covariance(x, diag=False)
 
     def leverage(self, x):
-        raise NotImplementedError(f"leverage is {_FUNCTION_ESTIMATOR}")
+        """Diagonal of the hat matrix K (K + σ² I)⁻¹ at x, with the
+        predictor's σ: (n,), or (n, p) for a per-feature σ."""
+        return self._leverage(self._validate(x), self.sigma)
 
     def loo_residuals_squared(self, x, y):
-        raise NotImplementedError(f"loo_residuals_squared is {_FUNCTION_ESTIMATOR}")
+        """Squared leave-one-out residuals by the HC3 shortcut r²/(1 − h)²."""
+        x = self._validate(x)
+        y = validate_array(y, "y", dtype=self.dtype, device=self.device)
+        residual = y - self._mean(x)
+        h = self._leverage(x, self.sigma)
+        if residual.ndim > h.ndim:
+            h = h[..., None]
+        return residual**2 / (1 - h) ** 2
 
     def obs_variance(self, x):
-        raise NotImplementedError(f"obs_variance is {_FUNCTION_ESTIMATOR}")
+        """The smoothed observation-noise variance at x."""
+        return self._obs_variance(self._validate(x))
 
     def gradient(self, x, jit=True):
         """Gradient of the mean at each row of x, shape (n, d).  ``jit`` is
@@ -310,6 +327,40 @@ def _resolve_predictor_class(clsname, module_name):
             pass
     raise ValueError(
         f"Cannot resolve predictor class {clsname} from module {module_name}: "
-        "mellon_tpu_torch has LandmarksConditionalCholesky only (ROADMAP "
-        "Queue 1, items 12-15 bring the other conditionals)."
+        "mellon_tpu_torch has the full, landmarks and landmarks-Cholesky "
+        "conditionals and their exp forms (ROADMAP Queue 1, item 15 brings "
+        "the time-aware ones)."
     )
+
+
+class ExpPredictor(Predictor):
+    """A predictor of exp(mean): the local dimensionality, whose GP models
+    its logarithm.  The covariance methods describe the log scale, and say
+    so."""
+
+    def mean(self, x, logscale=False):
+        """exp of the conditional mean at x, or the mean itself with
+        ``logscale=True``."""
+        x = self._validate(x)
+        logscale = validate_bool(logscale, "logscale")
+        out = _chunked_rows(self._mean, x)
+        return out if logscale else torch.exp(out)
+
+    __call__ = mean
+
+    @wraps(Predictor.covariance)
+    def covariance(self, *args, **kwargs):
+        logger.warning("The covariance will be computed for the predicted value in log scale.")
+        return super().covariance(*args, **kwargs)
+
+    @wraps(Predictor.mean_covariance)
+    def mean_covariance(self, *args, **kwargs):
+        logger.warning(
+            "The mean_covariance will be computed for the predicted value in log scale."
+        )
+        return super().mean_covariance(*args, **kwargs)
+
+    @wraps(Predictor.uncertainty)
+    def uncertainty(self, *args, **kwargs):
+        logger.warning("The uncertainty will be computed for the predicted value in log scale.")
+        return super().uncertainty(*args, **kwargs)

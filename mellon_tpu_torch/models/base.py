@@ -2,6 +2,12 @@
 preparation, the landmark factorization with f32 pruning, and the
 optimizer dispatch (counterpart of ``mellon_tpu/models/base.py``).
 
+The optimizers and the Laplace step see the latents flattened: the
+estimator provides ``_value_and_grad``, ``_loss_batch`` and
+``_hessian_diagonal`` on the flattened vector, and the fitted latents
+take the initial value's shape again ((k,) for the density, (2, k) for
+the dimensionality model).
+
 Every tensor of an estimator lives on its ``device`` in its ``dtype``
 (``cuda`` and float32 unless asked otherwise).
 """
@@ -15,6 +21,7 @@ import torch
 
 from ..config import resolve_device_dtype
 from ..inference.advi import run_advi
+from ..inference.conditionals import _landmarks_lp_with_pruning
 from ..inference.diagnostics import effective_sample_size
 from ..inference.laplace import compute_laplace_std
 from ..inference.losses import (
@@ -40,12 +47,6 @@ from ..inference.optimizers import (
 )
 from ..inference.smc import laplace_start, run_smc
 from ..ops.kernels import Matern52
-from ..ops.linalg import (
-    PIVOT_REL_TOL,
-    _jittered_cholesky,
-    safe_cholesky,
-    select_stable_landmarks,
-)
 from ..parameters import (
     DEFAULT_RANDOM_SEED,
     _require_ported_gp_type,
@@ -304,40 +305,25 @@ class BaseEstimator:
         logger.info("Using covariance function %s.", str(cov_func))
         return cov_func
 
-    def _lp_accept_or_prune(self, K, L, ok):
-        """Accept the f32 Cholesky attempt (L, ok) of the landmark kernel K,
-        or prune to the pivoted-Cholesky landmark subset and factorize its
-        submatrix.  (Keeping every landmark with a float64 factor is the
-        JAX package's opt-out ``PRUNE_SINGULAR_LANDMARKS = False``; it is
-        not ported.)"""
-        if bool(ok):
-            return L
-        piv = select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL)
-        logger.warning(
-            "Landmark kernel is singular at f32; pruning %d "
-            "redundant landmarks (keeping %d).",
-            self.landmarks.shape[0] - len(piv),
-            len(piv),
-        )
-        self.landmarks = self.landmarks[piv]
-        self.n_landmarks = int(len(piv))
-        if self.check_rank is None:
-            # rank is known by construction; skip the SVD check
-            self.check_rank = False
-        return safe_cholesky(K[piv][:, piv], jitter=self.jitter, max_tries=3)
-
     def _compute_Lp(self):
         # float32 sparse case: when the landmark kernel is singular at f32,
-        # prune to the pivoted-Cholesky subset (_lp_accept_or_prune)
+        # prune to the pivoted-Cholesky subset, as the landmarks conditional
+        # does.  (Keeping every landmark with a float64 factor is the JAX
+        # package's opt-out PRUNE_SINGULAR_LANDMARKS = False; not ported.)
         if (
             self.landmarks is not None
             and self.gp_type
             in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED)
             and self.dtype != torch.float64
         ):
-            K = self.cov_func(self.landmarks, self.landmarks)
-            L, ok = _jittered_cholesky(K, self.jitter)
-            return self._lp_accept_or_prune(K, L, ok)
+            landmarks, Lp = _landmarks_lp_with_pruning(self.landmarks, self.cov_func, self.jitter)
+            if landmarks is not self.landmarks:
+                self.landmarks = landmarks
+                self.n_landmarks = int(landmarks.shape[0])
+                if self.check_rank is None:
+                    # rank is known by construction; skip the SVD check
+                    self.check_rank = False
+            return Lp
         return compute_Lp(
             self.x, self.cov_func, self.gp_type, self.landmarks, sigma=0, jitter=self.jitter
         )
@@ -354,7 +340,7 @@ class BaseEstimator:
             jitter=self.jitter,
         )
         n_samples = self.x.shape[0]
-        n_landmarks = self.landmarks.shape[0]
+        n_landmarks = n_samples if self.landmarks is None else self.landmarks.shape[0]
         check_rank = self.check_rank
         if (
             check_rank is None
@@ -386,42 +372,44 @@ class BaseEstimator:
         optimizer = self.optimizer
         logger.info("Running inference using %s.", optimizer)
         self.pre_transformation_std = None
+        shape = self.initial_value.shape
+        z0 = self.initial_value.reshape(-1)
         if optimizer == "adam":
             results = minimize_adam(
                 self._value_and_grad,
-                self.initial_value,
+                z0,
                 n_iter=self.n_iter,
                 init_learn_rate=self.init_learn_rate,
             )
-            self.pre_transformation = results.pre_transformation
+            self.pre_transformation = results.pre_transformation.reshape(shape)
             self.losses = results.losses
             self.opt_state = results.opt_state
         elif optimizer == "advi":
             seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
             results = run_advi(
                 self._loss_batch,
-                self.initial_value,
+                z0,
                 n_iter=self.n_iter,
                 init_learn_rate=self.init_learn_rate,
                 generator=torch.Generator(device=self.device).manual_seed(seed),
             )
-            self.pre_transformation = results.pre_transformation
-            self.pre_transformation_std = results.pre_transformation_std
+            self.pre_transformation = results.pre_transformation.reshape(shape)
+            self.pre_transformation_std = results.pre_transformation_std.reshape(shape)
             self.losses = results.losses
         elif optimizer == "nuts":
             self._run_nuts()
         elif optimizer == "smc":
             self._run_smc()
         else:
-            results = minimize_lbfgs(self._value_and_grad, self.initial_value)
-            self.pre_transformation = results.pre_transformation
+            results = minimize_lbfgs(self._value_and_grad, z0)
+            self.pre_transformation = results.pre_transformation.reshape(shape)
             self.losses = [results.loss]
             self.opt_state = results
         if self.predictor_with_uncertainty and self.pre_transformation_std is None:
             logger.info("Computing Laplace approximation for posterior uncertainty.")
             self.pre_transformation_std = compute_laplace_std(
-                self._hessian_diagonal(self.pre_transformation)
-            )
+                self._hessian_diagonal(self.pre_transformation.reshape(-1))
+            ).reshape(shape)
 
     def _sampler_generator(self):
         seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED

@@ -1,11 +1,13 @@
 """Cell-state density estimation (counterpart of ``mellon_tpu/models/density.py``).
 
 ``DensityEstimator().fit_predict(x)`` runs the main path: 1-NN distances and
-their repair, the d/mu/ls heuristics, k-means landmarks, the landmark
-Cholesky (pruned when singular at f32), L = k(x, xu) Lp⁻ᵀ, the ridge warm
-start, the latents' fit (L-BFGS by default, or adam, ADVI, or the
-posterior mean of NUTS or SMC draws) and f = L z + μ.  ``.predict`` builds
-the landmark conditional predictor lazily; with
+their repair, the d/mu/ls heuristics (d the embedding's, or the mean local
+fractal dimension with ``d_method="fractal"``), k-means landmarks, the
+landmark Cholesky (pruned when singular at f32), L = k(x, xu) Lp⁻ᵀ, the
+ridge warm start, the latents' fit (L-BFGS by default, or adam, ADVI, or
+the posterior mean of NUTS or SMC draws) and f = L z + μ.  At most 5,000
+cells take the full GP type instead: no landmarks, L = chol(k(x, x)).
+``.predict`` builds the conditional predictor lazily; with
 ``predictor_with_uncertainty=True`` it also carries the latents' std (from
 ADVI, NUTS or SMC, or else the diagonal Laplace approximation).
 """
@@ -23,7 +25,13 @@ from ..inference.losses import (
 )
 from ..inference.mcmc import BF16_SAMPLING
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
-from ..parameters import DEFAULT_RANDOM_SEED, compute_d, compute_initial_value, compute_mu
+from ..parameters import (
+    DEFAULT_RANDOM_SEED,
+    compute_d,
+    compute_d_factal,
+    compute_initial_value,
+    compute_mu,
+)
 from ..utils.util import DEFAULT_JITTER
 from ..utils.validation import validate_array, validate_string
 from .base import DEFAULT_COV_FUNC, BaseEstimator
@@ -134,11 +142,6 @@ class DensityEstimator(BaseEstimator):
             self.d_method = validate_string(
                 d_method, "d_method", choices={"fractal", "embedding", "manual"}
             )
-            if self.d_method == "fractal":
-                raise NotImplementedError(
-                    'd_method="fractal" is not ported to mellon_tpu_torch yet '
-                    "(ROADMAP Queue 1, item 14: local dimensionality)."
-                )
         self.transform = None
         self.loss_func = None
         self.opt_state = None
@@ -149,7 +152,10 @@ class DensityEstimator(BaseEstimator):
         self.log_density_func = None
 
     def _compute_d(self):
-        if self.d_method == "manual":
+        if self.d_method == "fractal":
+            d = compute_d_factal(self.x)
+            logger.info(f"Using d={d}.")
+        elif self.d_method == "manual":
             if self.d is None:
                 raise ValueError(
                     'd_method="manual" requires the intrinsic '

@@ -1,1 +1,2 @@
-"""Operations of the density main path on tensors."""
+"""Operations of the estimators on tensors: kernels, neighbours,
+clustering, factorizations."""

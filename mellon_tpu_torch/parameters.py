@@ -1,10 +1,11 @@
 """Parameter heuristics of the density main path.
 
 Counterpart of ``mellon_tpu/parameters.py``: the gp_type / n_landmarks /
-rank decision tables, landmarks by seeded k-means, 1-NN distances, the
-d/mu/ls heuristics, the Cholesky factors and the ridge warm start.  Only
-the sparse-Cholesky and fixed GP types are ported; the others raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+rank decision tables, landmarks by seeded k-means, k-NN distances, the
+d/mu/ls heuristics (with the fractal d), the Cholesky factors and the
+ridge warm starts.  The full, sparse-Cholesky and fixed GP types are
+ported; the Nyström types raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 import logging
@@ -13,7 +14,7 @@ import torch
 
 from .ops.cluster import k_means
 from .ops.linalg import DEFAULT_SIGMA, _full_rank, _standard_low_rank, ridge_solve
-from .ops.neighbors import knn_distances
+from .ops.neighbors import knn_distances, local_dimensionality
 from .utils.parameter_validation import validate_params
 from .utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, mle
 from .utils.validation import (
@@ -32,13 +33,21 @@ logger = logging.getLogger("mellon_tpu_torch")
 
 _NOT_PORTED_GP = (
     "gp_type {} is not ported to mellon_tpu_torch yet (ROADMAP Queue 1, "
-    "item 13: Nyström and the full GP types); use the sparse-Cholesky or "
+    "item 13b: the Nyström GP types); use the full, sparse-Cholesky or "
     "fixed type."
 )
+_PORTED_GP_TYPES = (
+    GaussianProcessType.FULL,
+    GaussianProcessType.SPARSE_CHOLESKY,
+    GaussianProcessType.FIXED,
+)
+# the subsample of compute_d_factal
+FRACTAL_D_SAMPLES = 500
+FRACTAL_D_SEED = 432
 
 
 def _require_ported_gp_type(gp_type):
-    if gp_type not in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED):
+    if gp_type not in _PORTED_GP_TYPES:
         raise NotImplementedError(_NOT_PORTED_GP.format(gp_type))
 
 
@@ -152,16 +161,23 @@ def compute_landmarks(x, gp_type=None, n_landmarks=DEFAULT_N_LANDMARKS, random_s
     return k_means(x_fit, n_landmarks, random_state=seed)
 
 
-def compute_nn_distances(x):
-    """Distance to the nearest other point of each row of x."""
+def compute_distances(x, k, seed=DEFAULT_RANDOM_SEED):
+    """Distances to the k nearest other points of each row of x, (n, k),
+    ascending.  The search is exact; ``seed`` is accepted for the JAX
+    package's signature."""
     x = ensure_2d(x)
     n_samples = x.shape[0]
     if n_samples == 0:
         message = "Input data x is empty."
         logger.error(message)
         raise ValueError(message)
-    validate_k(1, n_samples)
-    return knn_distances(x, 1)[:, 0]
+    validate_k(k, n_samples)
+    return knn_distances(x, k)
+
+
+def compute_nn_distances(x):
+    """Distance to the nearest other point of each row of x."""
+    return compute_distances(x, 1)[:, 0]
 
 
 def compute_d(x):
@@ -169,6 +185,21 @@ def compute_d(x):
     if x.ndim < 2:
         return 1
     return x.shape[1]
+
+
+def compute_d_factal(x, k=10, n=FRACTAL_D_SAMPLES, seed=FRACTAL_D_SEED):
+    """Mean local fractal dimension over ``n`` cells drawn without
+    replacement (all cells where there are at most ``n``).  The draw comes
+    from a ``torch.Generator`` seeded with ``seed``: torch cannot repeat
+    JAX's threefry stream, so above ``n`` cells the subsample, and with it
+    the mean, differs from the JAX package's."""
+    if x.ndim < 2:
+        return 1
+    x_query = x
+    if n < x.shape[0]:
+        generator = torch.Generator(device=x.device).manual_seed(int(seed))
+        x_query = x[torch.randperm(x.shape[0], generator=generator, device=x.device)[:n]]
+    return float(local_dimensionality(x, k=k, x_query=x_query).mean())
 
 
 def compute_mu(nn_distances, d):
@@ -187,7 +218,8 @@ def compute_cov_func(cov_func_curry, ls):
 
 
 def compute_Lp(x, cov_func, gp_type=None, landmarks=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
-    """Cholesky factor Lp of the landmark covariance."""
+    """Cholesky factor Lp of the landmark covariance, or of the full
+    covariance k(x, x) for the full GP type."""
     x = ensure_2d(x)
     n_samples = x.shape[0]
     if landmarks is None:
@@ -200,14 +232,18 @@ def compute_Lp(x, cov_func, gp_type=None, landmarks=None, sigma=DEFAULT_SIGMA, j
     if gp_type is None:
         gp_type = compute_gp_type(n_landmarks, 1.0, n_samples)
     _require_ported_gp_type(gp_type)
+    if gp_type == GaussianProcessType.FULL:
+        logger.info("Computing Lp.")
+        return _full_rank(x, cov_func, sigma=sigma, jitter=jitter)
     return _full_rank(landmarks, cov_func, sigma=sigma, jitter=jitter)
 
 
-def compute_L(x, cov_func, gp_type=None, landmarks=None, Lp=None, rank=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
-    """Transformation L with L Lᵀ ≈ K (sparse-Cholesky: L = k(x, xu) Lp⁻ᵀ)."""
+def validate_compute_L_input(x, cov_func, gp_type, landmarks, Lp, rank, sigma, jitter):
+    """The checked inputs of :func:`compute_L`: ``(x, landmarks,
+    n_landmarks, n_samples, gp_type, rank)``.  Lp must be (n, n) for the
+    full type and (m, m) for the sparse-Cholesky and fixed types."""
     jitter = validate_positive_float(jitter, "jitter")
     rank = validate_float_or_int(rank, "rank", optional=True)
-    x = ensure_2d(x)
     n_samples = x.shape[0]
     n_landmarks = n_samples if landmarks is None else landmarks.shape[0]
     gp_type = GaussianProcessType.from_string(gp_type, optional=True)
@@ -216,17 +252,32 @@ def compute_L(x, cov_func, gp_type=None, landmarks=None, Lp=None, rank=None, sig
     if gp_type is None:
         gp_type = compute_gp_type(n_landmarks, rank, n_samples)
     validate_params(rank, gp_type, n_samples, n_landmarks, landmarks)
-    _require_ported_gp_type(gp_type)
-    if landmarks is None:
-        raise NotImplementedError(_NOT_PORTED_GP.format(GaussianProcessType.FULL))
-    landmarks = ensure_2d(landmarks)
-    if Lp is not None and tuple(Lp.shape) != (n_landmarks, n_landmarks):
-        message = (
-            f" Wrong shape of Lp {tuple(Lp.shape)} for {gp_type} and "
-            f"{n_landmarks:,} landmarks."
-        )
+    if gp_type == GaussianProcessType.FULL:
+        size, what = n_samples, "samples"
+    else:
+        size, what = n_landmarks, "landmarks"
+    if Lp is not None and tuple(Lp.shape) != (size, size):
+        message = f" Wrong shape of Lp {tuple(Lp.shape)} for {gp_type} and {size:,} {what}."
         logger.error(message)
         raise ValueError(message)
+    x = ensure_2d(x)
+    if landmarks is not None:
+        landmarks = ensure_2d(landmarks)
+    return x, landmarks, n_landmarks, n_samples, gp_type, rank
+
+
+def compute_L(x, cov_func, gp_type=None, landmarks=None, Lp=None, rank=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
+    """Transformation L with L Lᵀ ≈ K: the Cholesky factor of k(x, x) for
+    the full type (Lp itself where given), L = k(x, xu) Lp⁻ᵀ for the
+    sparse-Cholesky and fixed types."""
+    x, landmarks, _, _, gp_type, _ = validate_compute_L_input(
+        x, cov_func, gp_type, landmarks, Lp, rank, sigma, jitter
+    )
+    _require_ported_gp_type(gp_type)
+    if gp_type == GaussianProcessType.FULL:
+        if Lp is None:
+            return _full_rank(x, cov_func, sigma=sigma, jitter=jitter)
+        return Lp
     return _standard_low_rank(x, cov_func, landmarks, Lp=Lp, sigma=sigma, jitter=jitter)
 
 
@@ -234,3 +285,15 @@ def compute_initial_value(nn_distances, d, mu, L):
     """Ridge warm start: z minimizing ||Lz + mu - mle||² + ||z||²."""
     target = mle(nn_distances, d) - mu
     return ridge_solve(L, target, 1.0)
+
+
+def compute_initial_dimensionalities(x, mu_dim, mu_dens, L, nn_distances, d):
+    """The dimensionality model's warm start, (2, k): the ridge fits of
+    log d − mu_dim and of the density's MLE target."""
+    d = torch.as_tensor(d, dtype=L.dtype, device=L.device)
+    target = torch.log(d) - mu_dim
+    if target.numel() == 1:
+        target = target.reshape(()).expand(L.shape[0])
+    initial_dims = ridge_solve(L, target, 1.0)
+    initial_dens = compute_initial_value(nn_distances, d, mu_dens, L)
+    return torch.stack([initial_dims, initial_dens])

@@ -83,6 +83,24 @@ def add_diagonal(A, value):
     return A
 
 
+def stabilize(A, jitter=DEFAULT_JITTER):
+    """A + jitter I."""
+    return add_diagonal(A, jitter)
+
+
+def add_variance(K, M=None, jitter=DEFAULT_JITTER):
+    """K + M Mᵀ, with the added diagonal floored at ``jitter``: M None adds
+    jitter I, a scalar M adds max(M², jitter) I (as
+    ``mellon_tpu.utils.util.add_variance``)."""
+    if M is None:
+        return stabilize(K, jitter)
+    if not isinstance(M, torch.Tensor) or M.ndim == 0:
+        return add_diagonal(K, max(jitter, float(M) ** 2))
+    noise = M @ M.T
+    diag_noise = torch.diagonal(noise)
+    return K + noise + torch.diag(torch.clamp_min(jitter - diag_noise, 0))
+
+
 def mle(nn_distances, d):
     """Point-wise MLE of log density from 1-NN distances in d dimensions."""
     d = torch.as_tensor(d, dtype=nn_distances.dtype, device=nn_distances.device)

@@ -269,3 +269,99 @@ def test_sampler_refuses_a_generator_on_another_device(cuda):
 
     with pytest.raises(ValueError, match="generator"):
         run_mcmc(value_and_grad, torch.zeros(3, device=cuda), torch.Generator(), num_warmup=2, num_samples=2)
+
+
+def _trend_data(n, d, p, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d) * np.exp(-0.15 * np.arange(d))
+    W = rng.randn(d, p) / np.sqrt(d)
+    return x, np.sin(x @ W) + 0.1 * rng.randn(n, p)
+
+
+@pytest.mark.parametrize("sigma", ["scalar", "per feature"])
+def test_full_function_fit_f32_matches_f64_on_card(cuda, sigma):
+    """FunctionEstimator(n_landmarks=0, obs_variance=True), the full GP
+    type, in float32 and float64 on the card (1,500 cells, 8 outputs):
+    predictions, leverage and observation variance within 1e-3 of the
+    largest float64 value, the leverage within [0, 1], the kernel
+    launched."""
+    x, y = _trend_data(1500, 10, 8, seed=70)
+    s = 0.5 if sigma == "scalar" else np.linspace(0.3, 1.0, 8)
+    outs = []
+    before = matern52_gram.launches
+    for dtype in (torch.float32, torch.float64):
+        est = mellon_tpu_torch.FunctionEstimator(
+            sigma=s, n_landmarks=0, obs_variance=True, ls=3.0, device=cuda, dtype=dtype
+        )
+        pred = est.fit_predict(x, y)
+        assert est.gp_type.value == "full" and pred.device.type == "cuda"
+        outs.append([pred, est.leverage(), est.get_obs_variance(x[:200])])
+    for a, b in zip(*outs):
+        assert (a.double() - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+    assert matern52_gram.launches > before
+    lev = outs[0][1]
+    assert float(lev.min()) >= 0.0 and float(lev.max()) <= 1.0
+
+
+def test_full_density_fit_f32_matches_f64_on_card(cuda):
+    """DensityEstimator() on 2,000 cells takes the full GP type (an n x n
+    factor, L-BFGS over 2,000 latents) on the card, launching the kernel:
+    float32 against float64, corr >= 0.999."""
+    x, _ = _trend_data(2000, 10, 1, seed=71)
+    lds = []
+    before = matern52_gram.launches
+    for dtype in (torch.float32, torch.float64):
+        est = mellon_tpu_torch.DensityEstimator(predictor_with_uncertainty=True, device=cuda, dtype=dtype)
+        lds.append(est.fit_predict(x).double().cpu().numpy())
+        assert est.gp_type.value == "full" and est.L.shape == (2000, 2000)
+        assert torch.isfinite(est.predict.uncertainty(x[:100])).all()
+    assert np.corrcoef(lds[0], lds[1])[0, 1] >= 0.999
+    assert matern52_gram.launches > before
+
+
+def test_hat_diagonal_float64_rescue_stays_on_card(cuda, monkeypatch):
+    """A float32 leverage whose M is singular at float32 leaves [0, 1] and
+    is recomputed in float64: on the card (every factorization of the
+    recomputation takes CUDA float64 tensors), clipped, returned in
+    float32 on the card."""
+    from mellon_tpu_torch.inference import conditionals
+
+    rng = np.random.RandomState(72)
+    cov = mellon_tpu_torch.Matern52(ls=40.0)
+    x = torch.tensor(rng.randn(2000, 3), dtype=torch.float32, device=cuda)
+    xu = torch.tensor(rng.randn(300, 3), dtype=torch.float32, device=cuda)
+    B, K = cov(x, xu), cov(xu, xu)
+    seen = []
+    factor = conditionals._cholesky
+
+    def recording(A):
+        seen.append((A.device.type, A.dtype))
+        return factor(A)
+
+    monkeypatch.setattr(conditionals, "_cholesky", recording)
+    h = conditionals._hat_diagonal(B, K, 1e-3, 1e-6)
+    assert h.device.type == "cuda" and h.dtype == torch.float32
+    assert ("cuda", torch.float64) in seen
+    assert all(device == "cuda" for device, _ in seen)
+    assert float(h.min()) >= 0.0 and float(h.max()) <= 1.0
+
+
+def test_function_and_dimensionality_launch_the_kernel(cuda):
+    """The sparse FunctionEstimator (fit, leverage, observation variance)
+    and the DimensionalityEstimator (fit, both predictors) each launch the
+    CUDA tile."""
+    x, y = _trend_data(3000, 10, 4, seed=73)
+    before = matern52_gram.launches
+    est = mellon_tpu_torch.FunctionEstimator(sigma=0.2, n_landmarks=300, obs_variance=True, device=cuda)
+    est.fit_predict(x, y)
+    lev = est.leverage()
+    torch.cuda.synchronize()
+    assert matern52_gram.launches > before
+    assert float(lev.min()) >= 0.0 and float(lev.max()) <= 1.0
+    before = matern52_gram.launches
+    dim = mellon_tpu_torch.DimensionalityEstimator(n_landmarks=300, device=cuda)
+    local = dim.fit_predict(x)
+    dim.predict(x[:100]), dim.predict_density(x[:100])
+    torch.cuda.synchronize()
+    assert matern52_gram.launches > before
+    assert torch.isfinite(local).all() and (local > 0).all()

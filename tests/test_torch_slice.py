@@ -87,7 +87,7 @@ def test_slice_f32_prunes_like_jax():
         {"rank": 10},
         {"gp_type": "sparse_nystroem", "rank": 0.9},
         {"precision": "bf16", "optimizer": "adam"},
-        {"d_method": "fractal"},
+        {"rank": 0.5},
         {"precision": "bf16"},
     ],
 )
@@ -100,11 +100,15 @@ def test_unported_options_raise(kwargs):
 
 
 def test_full_gp_type_raises_and_fixed_runs():
-    """Without a landmark reduction (n_landmarks >= n) the full GP type is
-    refused; the fixed type keeps every cell as a landmark and runs."""
+    """Without a landmark reduction (n_landmarks >= n) the full GP type
+    runs (it raised before it was ported: tests/test_torch_full_gp.py
+    holds it against mellon_tpu); the fixed type keeps every cell as a
+    landmark and runs."""
     x = clustered(120, 3, seed=25)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mellon_tpu_torch.DensityEstimator(**CPU64).fit(x)
+    est = mellon_tpu_torch.DensityEstimator(**CPU64)
+    ld = est.fit_predict(x)
+    assert est.gp_type == mellon_tpu_torch.GaussianProcessType.FULL
+    assert est.landmarks is None and est.L.shape == (120, 120) and torch.isfinite(ld).all()
     est = mellon_tpu_torch.DensityEstimator(gp_type="fixed", n_landmarks=120, **CPU64)
     ld = est.fit_predict(x)
     assert est.landmarks.shape == (120, 3) and torch.isfinite(ld).all()

@@ -227,7 +227,8 @@ def test_estimator_advi_with_uncertainty_runs():
 def test_conditional_refuses_missing_or_double_uncertainty():
     """compute_conditional refuses a sigma beside the latents' std, and
     uncertainty without either, as the JAX package does; a predictor
-    without uncertainty says so when asked for it."""
+    without uncertainty, or without the observation variance, says so
+    when asked for it."""
     x = t64(clustered(50, 2, seed=59))
     xu, z = x[:10], t64(np.linspace(-1, 1, 10))
     cov = mellon_tpu_torch.Matern52(ls=1.0)
@@ -240,8 +241,8 @@ def test_conditional_refuses_missing_or_double_uncertainty():
     pred = compute_conditional(x, xu, z, None, None, 0.0, cov, None, y_is_mean=True)
     with pytest.raises(ValueError, match="without covariance"):
         pred.covariance(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred.leverage(x)
+    with pytest.raises(ValueError, match="without obs_variance"):
+        pred.obs_variance(x)
 
 
 @pytest.mark.parametrize("sigma", [0.3, "per_landmark"])
