@@ -90,15 +90,20 @@ these paths are kept for phase 4.
    PER_FEATURE_OUTPUTS outputs (one σ per output, on the first fit's
    landmarks and factor); each within FUNCTION_F64_REL of a float64 fit
    on the card on the same landmarks and length scale, the leverage
-   within [0, 1];
+   within [0, 1], with the count of leverages float32 left to the float64
+   recomputation;
 15. function full: FunctionEstimator(sigma=1.0, n_landmarks=0,
    obs_variance=True) on the first FULL_CELLS cells and the same outputs
    (the full GP type), held to float64 in the same way;
 16. dimensionality: DimensionalityEstimator(predictor_with_uncertainty=True)
    on the benchmark cells: the local dimensions and log densities at the
    cells, predict and predict_density (and their uncertainty) at the 1,000
-   points; the local dimensions finite and in (0, 2d], and within
-   DIMENSIONALITY_MIN_CORR of a float64 fit on the same landmarks;
+   points, the local dimensions finite and in (0, 2d]; a float64 fit on
+   the same landmarks, each fit's L-BFGS steps, whether it met its
+   tolerance and the two fits' correlation; then each fit's L-BFGS
+   continued from its solution (at most DIMENSIONALITY_CONTINUE steps),
+   both to tolerance, their optima within DIMENSIONALITY_OPTIMUM_MIN_CORR
+   of each other;
 17. density full: DensityEstimator(predictor_with_uncertainty=True) on the
    first FULL_CELLS cells (the full GP type: an L-BFGS MAP over as many
    latents), d_method="fractal" on the same cells, and the README's first
@@ -114,6 +119,7 @@ CUDA device the script exits with status 2 and prints no result.
 """
 
 import json
+import logging
 import math
 import os
 import statistics
@@ -172,15 +178,28 @@ TRACE_TRANSITIONS = 10
 # and the correlation of the fitted functions at the cells
 FUNCTION_OUTPUTS = 2000
 # the per-feature σ run takes one leverage factorization per output, twice
-# (the HC3 step and leverage()), each in float32 and then, where float32
-# leaves [0, 1] as it does at this shape, in float64: 18.6 ms per output on
-# the H100 (PERF.md), so it runs on the first PER_FEATURE_OUTPUTS outputs
-PER_FEATURE_OUTPUTS = 500
+# (the HC3 step and leverage()), in float64 where float32 fails as it does
+# at this shape: with its float64 twin ~14 ms per output on the H100
+# (PERF.md), so it runs on the first PER_FEATURE_OUTPUTS outputs
+PER_FEATURE_OUTPUTS = 200
 FUNCTION_SIGMA = 0.1
 GENE_SEED = 5
 FULL_CELLS = 5000
+# at the bench shape the sparse type's float32 M = σ² K_uu + BᵀB fails
+# (σ² = 0.01 against BᵀB's ~8,600), so every sparse leverage, the HC3 step's
+# too, is the float64 recomputation from the float32 operands: there the
+# leverage bar holds that recomputation, not float32 (the full type's
+# leverage is float32's own); the paths count the recomputations
 FUNCTION_F64_REL = {"predict": 0.05, "leverage": 1e-3, "obs_variance": 0.1}
-DIMENSIONALITY_MIN_CORR = {"local_dim_x": 0.99, "log_density_x": 0.999}
+# both dimensionality fits stop at L-BFGS's 400-step cap at the bench shape,
+# unconverged, at points of a flat valley that move from run to run (corr
+# 0.9904-0.9975 on the local dimension over six H100 readings, PERF.md):
+# their correlation is printed, not held.  Each fit is continued from its
+# solution to its tolerance (1,093-1,254 more steps there), and the two
+# optima are held to each other, at ~5x the gap of the two H100 readings
+# (1 - corr 3.5e-5-4.1e-5 and 7.7e-6-8.0e-6)
+DIMENSIONALITY_CONTINUE = 3000
+DIMENSIONALITY_OPTIMUM_MIN_CORR = {"local_dim_x": 0.9998, "log_density_x": 0.99995}
 DENSITY_FULL_MIN_CORR = 0.999
 
 # H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
@@ -784,25 +803,45 @@ def gene_trends(x, p, seed=GENE_SEED):
     return (np.sin(z @ W + b) + 0.1 * rng.normal(size=(x.shape[0], p))).astype(np.float32)
 
 
+class RecomputationCount(logging.Handler):
+    """Counts the warnings of the leverage's float64 recomputation."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.count = 0
+
+    def emit(self, record):
+        self.count += "recomputing in float64" in record.getMessage()
+
+
 def function_fit(mt, x, Y, x_new, dtype, preset=None, **kwargs):
     """A FunctionEstimator with obs_variance fitted on (x, Y): its
     prediction at x_new, leverage at x and observation variance at x_new,
-    with the seconds of each.  ``preset`` sets prepared attributes (the
-    lazy chain computes only what is unset)."""
+    with the seconds of each, and the count of leverages recomputed in
+    float64.  ``preset`` sets prepared attributes (the lazy chain computes
+    only what is unset)."""
     est = mt.FunctionEstimator(obs_variance=True, device=DEVICE, dtype=dtype, **kwargs)
     for name, value in (preset or {}).items():
         setattr(est, name, value)
     x_new = x_new.to(dtype)
     out, seconds = {}, {}
-    out["predict"], seconds["fit_predict"] = synced_seconds(lambda: est.fit_predict(x, Y, Xnew=x_new))
-    out["leverage"], seconds["leverage"] = synced_seconds(est.leverage)
-    out["obs_variance"], seconds["obs_variance"] = synced_seconds(lambda: est.get_obs_variance(x_new))
+    counter = RecomputationCount()
+    logger = logging.getLogger("mellon_tpu_torch")
+    logger.addHandler(counter)
+    try:
+        out["predict"], seconds["fit_predict"] = synced_seconds(
+            lambda: est.fit_predict(x, Y, Xnew=x_new))
+        out["leverage"], seconds["leverage"] = synced_seconds(est.leverage)
+        out["obs_variance"], seconds["obs_variance"] = synced_seconds(
+            lambda: est.get_obs_variance(x_new))
+    finally:
+        logger.removeHandler(counter)
     if not finite(*out.values()):
         raise AssertionError(f"the FunctionEstimator's outputs are not finite ({dtype})")
     lev = out["leverage"]
     if not (float(lev.min()) >= 0.0 and float(lev.max()) <= 1.0):
         raise AssertionError(f"leverage outside [0, 1]: [{float(lev.min())}, {float(lev.max())}]")
-    return est, out, seconds
+    return est, out, seconds, counter.count
 
 
 def function_pair(mt, label, x, Y, x_new, sigma, preset=None, **kwargs):
@@ -810,14 +849,15 @@ def function_pair(mt, label, x, Y, x_new, sigma, preset=None, **kwargs):
     and length scale): the gaps and the float32 seconds."""
     import torch
 
-    est, out, seconds = function_fit(mt, x, Y, x_new, torch.float32, preset, sigma=sigma, **kwargs)
+    est, out, seconds, recomputed = function_fit(mt, x, Y, x_new, torch.float32, preset, sigma=sigma,
+                                                 **kwargs)
     same = dict(ls=est.ls)
     if est.landmarks is not None:
         same["landmarks"] = est.landmarks.double()
     else:
         same["n_landmarks"] = 0
     sigma64 = sigma.double() if isinstance(sigma, torch.Tensor) else sigma
-    _, out64, seconds64 = function_fit(mt, x, Y, x_new, torch.float64, sigma=sigma64, **same)
+    _, out64, seconds64, _ = function_fit(mt, x, Y, x_new, torch.float64, sigma=sigma64, **same)
     gaps = {k: relative_gap(out[k], out64[k]) for k in out}
     lev = out["leverage"]
     stats = {
@@ -825,6 +865,7 @@ def function_pair(mt, label, x, Y, x_new, sigma, preset=None, **kwargs):
         "landmarks": None if est.landmarks is None else int(est.landmarks.shape[0]),
         "sigma": "per feature" if isinstance(sigma, torch.Tensor) else sigma,
         "seconds": seconds, "seconds_f64": seconds64,
+        "leverage_f64_recomputations": recomputed,
         "leverage_range": [float(lev.min()), float(lev.max())],
         "leverage_shape": list(lev.shape), "f32_vs_f64": gaps,
     }
@@ -866,9 +907,12 @@ def function_full_path(mt, x_np, x_new, Y):
 def dimensionality_path(mt, x_np, x_new):
     """DimensionalityEstimator(predictor_with_uncertainty=True) on the
     benchmark cells, against a float64 fit on its landmarks and length
-    scale."""
+    scale; then each fit's L-BFGS continued to its tolerance, and the two
+    optima held to each other."""
     import numpy as np
     import torch
+
+    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs
 
     def fit(dtype, **kwargs):
         est = mt.DimensionalityEstimator(predictor_with_uncertainty=True, device=DEVICE,
@@ -881,26 +925,45 @@ def dimensionality_path(mt, x_np, x_new):
                "density_uncertainty": est.predict_density.uncertainty(points)}
         return est, out, seconds
 
+    def optimum(est):
+        res, seconds = synced_seconds(lambda: minimize_lbfgs(
+            est._value_and_grad, est.pre_transformation.reshape(-1),
+            max_iter=DIMENSIONALITY_CONTINUE))
+        dims, log_density = est.transform(res.pre_transformation.reshape(2, -1))
+        state = {"steps": res.n_steps, "converged": res.converged, "loss": res.loss,
+                 "seconds": seconds}
+        return {"local_dim_x": dims, "log_density_x": log_density}, state
+
+    def lbfgs(est):
+        return {"steps": est.opt_state.n_steps, "converged": est.opt_state.converged,
+                "loss": est.opt_state.loss}
+
     est, out, seconds = fit(torch.float32)
-    _, out64, seconds64 = fit(torch.float64, landmarks=est.landmarks.double(), ls=est.ls)
+    est64, out64, seconds64 = fit(torch.float64, landmarks=est.landmarks.double(), ls=est.ls)
     corr = {k: log_density_corr(out[k], out64[k]) for k in ("local_dim_x", "log_density_x",
                                                              "predict", "predict_density")}
+    best, continued = optimum(est)
+    best64, continued64 = optimum(est64)
+    corr_optima = {k: log_density_corr(best[k], best64[k]) for k in best}
     d = x_np.shape[1]
     dims = torch.cat([out["local_dim_x"], out["predict"]])
     stats = {
         "gp_type": est.gp_type.value, "landmarks": int(est.landmarks.shape[0]),
-        "lbfgs_steps": est.opt_state.n_steps, "loss": est.opt_state.loss,
+        "lbfgs": lbfgs(est), "lbfgs_f64": lbfgs(est64),
         "seconds": seconds, "seconds_f64": seconds64,
         "local_dim_range": [float(dims.min()), float(dims.max())],
         "local_dim_median": float(np.median(out["local_dim_x"].double().cpu().numpy())),
         "raw_local_dim_median": float(est.d.double().median()),
         "corr_f32_f64": corr,
+        "continued": continued, "continued_f64": continued64, "corr_optima": corr_optima,
     }
     log("[dimensionality] " + json.dumps(stats))
-    log(f"[dimensionality] bars: local dimensions finite and in (0, {2 * d}], corr with float64 "
-        f">= {json.dumps(DIMENSIONALITY_MIN_CORR)}")
-    ok = (finite(*out.values()) and float(dims.min()) > 0 and float(dims.max()) <= 2 * d
-          and all(corr[k] >= v for k, v in DIMENSIONALITY_MIN_CORR.items()))
+    log(f"[dimensionality] bars: local dimensions finite and in (0, {2 * d}]; both continued "
+        f"fits converged, the optima's corr >= {json.dumps(DIMENSIONALITY_OPTIMUM_MIN_CORR)}")
+    ok = (finite(*out.values(), *best.values()) and float(dims.min()) > 0
+          and float(dims.max()) <= 2 * d
+          and continued["converged"] and continued64["converged"]
+          and all(corr_optima[k] >= v for k, v in DIMENSIONALITY_OPTIMUM_MIN_CORR.items()))
     if not ok:
         raise AssertionError(f"dimensionality failed its bars: {stats}")
     return stats

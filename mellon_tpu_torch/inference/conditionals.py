@@ -338,24 +338,47 @@ def _leverage_sigma_is_per_feature(conditional, sigma, n_eval):
     return sigma.shape[0] != n_eval
 
 
-def _hat_scalar(B, K_uu, sigmas, jitter):
+def _in_range(h):
+    """Whether every h lies in [0, 1] up to :data:`LEVERAGE_TOL`; all() of
+    the in-range test, so NaN and Inf fail it."""
+    return bool(torch.all((h >= -LEVERAGE_TOL) & (h <= 1 + LEVERAGE_TOL)))
+
+
+def _hat_chunk(M, Bt, weigh, check):
+    """weigh(colsum((L⁻¹Bᵀ)²)) for the Cholesky factors L of a batch M,
+    transposed: (n, c).  A factor that fails gives NaN; with ``check``,
+    None instead, before the solve, or where the result fails ``check``."""
+    L, info = torch.linalg.cholesky_ex(M)
+    failed = info != 0
+    if check is not None and bool(failed.any()):
+        return None
+    X = _solve(torch.where(failed[..., None, None], torch.nan, L), Bt)
+    h = weigh(torch.sum(X * X, dim=1)).T
+    return None if check is not None and not check(h) else h
+
+
+def _hat_scalar(B, K_uu, sigmas, jitter, check=None):
     """diag(B M⁻¹ Bᵀ) with M = σ² K_uu + BᵀB + jitter I for each σ of
-    ``sigmas`` (c,), through the Cholesky factor of M: (n, c)."""
+    ``sigmas`` (c,), through the Cholesky factor of M: (n, c); None as
+    soon as a chunk fails ``check`` (see :func:`_hat_chunk`)."""
     Bt = B.T
     BtB = Bt @ B
     m, n = Bt.shape
     cols = []
     for sl in _feature_chunks(sigmas.shape[0], (2 * m * m + m * n) * B.element_size()):
         s2 = sigmas[sl] ** 2
-        X = _solve(_cholesky(stabilize(s2[:, None, None] * K_uu + BtB, jitter)), Bt)
-        cols.append(torch.sum(X * X, dim=1).T)
+        h = _hat_chunk(stabilize(s2[:, None, None] * K_uu + BtB, jitter), Bt, lambda q: q, check)
+        if h is None:
+            return None
+        cols.append(h)
     return torch.cat(cols, dim=1)
 
 
-def _hat_per_obs(B, K_uu, sigma_cols, jitter, floor=True):
+def _hat_per_obs(B, K_uu, sigma_cols, jitter, floor=True, check=None):
     """diag(B M⁻¹ Bᵀ D⁻¹) with D = diag(σ²) per (n,) column of
     ``sigma_cols`` (n, c) and M = K_uu + Bᵀ D⁻¹ B + jitter I: (n, c).  σ²
-    is floored at ``jitter`` where ``floor``."""
+    is floored at ``jitter`` where ``floor``; None as soon as a chunk
+    fails ``check``."""
     Bt = B.T
     m, n = Bt.shape
     cols = []
@@ -363,8 +386,10 @@ def _hat_per_obs(B, K_uu, sigma_cols, jitter, floor=True):
         s2 = sigma_cols[:, sl].T ** 2
         inv_s2 = 1.0 / (torch.clamp_min(s2, jitter) if floor else s2)
         M = stabilize(K_uu + (Bt * inv_s2[:, None, :]) @ B, jitter)
-        X = _solve(_cholesky(M), Bt)
-        cols.append((inv_s2 * torch.sum(X * X, dim=1)).T)
+        h = _hat_chunk(M, Bt, lambda q: inv_s2 * q, check)
+        if h is None:
+            return None
+        cols.append(h)
     return torch.cat(cols, dim=1)
 
 
@@ -375,10 +400,11 @@ def _hat_diagonal(B, K_uu, sigma, jitter, per_feature=False):
     that for each feature, (n, p).  Per-observation σ (n,): h =
     diag(B M⁻¹ Bᵀ D⁻¹), D = diag(σ²), M = K_uu + Bᵀ D⁻¹ B; an (n, p) σ
     takes that per feature column.  M is factorized by Cholesky (the JAX
-    package inverts it).  A float32 result outside [0, 1] (by more than
-    :data:`LEVERAGE_TOL`, or not finite: an f32-singular K_uu) is
-    recomputed in float64 on the same device, clipped to [0, 1 − 1e-6],
-    with a warning where h reaches 1 even in float64.
+    package inverts it).  In float32, at the first chunk of features
+    whose factor fails or whose h leaves [0, 1] (by more than
+    :data:`LEVERAGE_TOL`, or is not finite: an f32-singular K_uu), the
+    whole leverage is recomputed in float64 on the same device, clipped
+    to [0, 1 − 1e-6], with a warning where h reaches 1 even in float64.
     """
     n = B.shape[0]
 
@@ -390,12 +416,12 @@ def _hat_diagonal(B, K_uu, sigma, jitter, per_feature=False):
                 "defined at the training geometry."
             )
 
-    def compute(B, K_uu, sigma, floor):
+    def compute(B, K_uu, sigma, floor, check=None):
         if per_feature and sigma.ndim == 2:
             check_per_obs_length(sigma.shape[0])
-            return _hat_per_obs(B, K_uu, sigma, jitter, floor)
+            return _hat_per_obs(B, K_uu, sigma, jitter, floor, check)
         if per_feature:
-            return _hat_scalar(B, K_uu, sigma.reshape(-1), jitter)
+            return _hat_scalar(B, K_uu, sigma.reshape(-1), jitter, check)
         if sigma.ndim >= 2:
             raise NotImplementedError(
                 "Leverage with a full-covariance sigma is not supported; "
@@ -403,21 +429,22 @@ def _hat_diagonal(B, K_uu, sigma, jitter, per_feature=False):
             )
         if sigma.ndim == 1:
             check_per_obs_length(sigma.shape[0])
-            return _hat_per_obs(B, K_uu, sigma[:, None], jitter, floor)[:, 0]
-        return _hat_scalar(B, K_uu, sigma.reshape(1), jitter)[:, 0]
+            h = _hat_per_obs(B, K_uu, sigma[:, None], jitter, floor, check)
+        else:
+            h = _hat_scalar(B, K_uu, sigma.reshape(1), jitter, check)
+        return None if h is None else h[:, 0]
 
     sigma = torch.as_tensor(sigma, dtype=B.dtype, device=B.device)
     if not per_feature and sigma.ndim == 2 and sigma.shape[1] == 1:
         sigma = sigma.reshape(-1)  # (n, 1) per observation
-    h = compute(B, K_uu, sigma, floor=True)
-    if h.dtype == torch.float64:
-        return h
-    # all() of the in-range test, so NaN and Inf take the rescue too
-    if bool(torch.all((h >= -LEVERAGE_TOL) & (h <= 1 + LEVERAGE_TOL))):
+    if B.dtype == torch.float64:
+        return compute(B, K_uu, sigma, floor=True)
+    h = compute(B, K_uu, sigma, floor=True, check=_in_range)
+    if h is not None:
         return h
     logger.warning(
-        "Leverage left [0, 1] on the f32 path (ill-conditioned landmark "
-        "kernel); recomputing in float64."
+        "Leverage left [0, 1] or its factorization failed on the f32 path "
+        "(ill-conditioned landmark kernel); recomputing in float64."
     )
     h64 = compute(B.double(), K_uu.double(), sigma.double(), floor=False)
     if not bool(torch.isfinite(h64).all()):
@@ -434,64 +461,7 @@ def _hat_diagonal(B, K_uu, sigma, jitter, per_feature=False):
             "landmark density to resolve the degeneracy.",
             n_degenerate,
         )
-    return torch.clamp(h64, 0.0, LEVERAGE_CEILING).to(h.dtype)
-
-
-def _f64_landmarks_weights(K, Kuf, r, sigma, jitter, y_is_mean, per_feature):
-    """The landmarks conditional's weights from the float32-rounded kernel
-    values, factorized and solved in float64 on their device: the rescue
-    of an f32-singular landmark kernel, where escalating the jitter would
-    let the factorization succeed and the solve lose its accuracy.
-
-    Returns (weights, L_B, Lp, A) in float64 (L_B None per feature).
-    """
-    K, Kuf, r = K.double(), Kuf.double(), r.double()
-    m = K.shape[0]
-    Lp = _cholesky_f64_rescue(K, jitter)
-    if Lp is None:
-        raise ValueError(
-            "The landmark kernel is not positive definite even in float64 "
-            "after jitter escalation."
-        )
-    A = _solve(Lp, Kuf)
-    eye = torch.eye(m, dtype=K.dtype, device=K.device)
-
-    def finish(L_B, r_l):
-        c = _solve(L_B, A @ r_l)
-        return _solve(Lp.T, _solve(L_B.mT, c, lower=False), lower=False), L_B
-
-    def solve_one(A_l, r_l):
-        return finish(torch.linalg.cholesky(A_l @ A.T + eye), r_l)
-
-    def solve_scaled(inv_s2, r_l):
-        # S = A Aᵀ is the O(m²n) product; A_l Aᵀ = S/σ² reuses it
-        return finish(torch.linalg.cholesky(A @ A.T * inv_s2 + eye), r_l)
-
-    if per_feature:
-        sigma = torch.as_tensor(sigma).to(device=K.device, dtype=K.dtype)
-        if sigma.ndim == 2:
-            s2 = sigma * sigma
-            cols = [solve_one(A / s2[:, j], r[:, j] / s2[:, j])[0] for j in range(r.shape[1])]
-        else:
-            S = A @ A.T
-            cols = []
-            for j in range(r.shape[1]):
-                s2 = float(sigma[j]) ** 2
-                cols.append(finish(torch.linalg.cholesky(S * (1.0 / s2) + eye), r[:, j] / s2)[0])
-        return torch.stack(cols, dim=1), None, Lp, A
-    if y_is_mean:
-        return (*solve_scaled(1.0, r), Lp, A)
-    if _ndim(sigma) == 0:
-        s2 = float(sigma) ** 2
-        return (*solve_scaled(1.0 / s2, r / s2), Lp, A)
-    sigma = torch.as_tensor(sigma).to(device=K.device, dtype=K.dtype)
-    if tuple(sigma.shape) == tuple(r.shape[:1]) and r.ndim == 1:
-        s2 = sigma * sigma
-        return (*solve_one(A / s2, r / s2), Lp, A)
-    if tuple(sigma.shape) == (r.shape[0], r.shape[0]):
-        L_s = torch.linalg.cholesky(stabilize(sigma, jitter))
-        return (*solve_one(_cho_solve(L_s, A.T).T, _cho_solve(L_s, r)), Lp, A)
-    raise ValueError("Unsupported sigma configuration.")
+    return torch.clamp(h64, 0.0, LEVERAGE_CEILING).to(B.dtype)
 
 
 def _landmarks_lp_with_pruning(xu, cov_func, jitter, K=None, known_singular=False):
@@ -755,7 +725,6 @@ class _LandmarksConditional:
         original_sigma = sigma
         per_feature = _is_per_feature_sigma(sigma, y)
 
-        rescued = None
         if Lp is None:
             K = cov_func(xu, xu)
             if K.dtype == torch.float64:
@@ -780,33 +749,35 @@ class _LandmarksConditional:
                             "Landmark kernel is singular at f32; computing "
                             "the conditional weights in float64."
                         )
-                        Kuf = cov_func(xu, x)
-                        w64, LB64, Lp64, A64 = _f64_landmarks_weights(
-                            K, Kuf, y - mu, sigma, jitter, y_is_mean, per_feature
-                        )
-                        weights = w64.to(K.dtype)
-                        L_B = None if LB64 is None else LB64.to(K.dtype)
-                        Lp = Lp64.to(K.dtype)
-                        # the float64 solve, rounded for storage
-                        A = A64.to(K.dtype)
-                        rescued = (Lp64, LB64, A64, K)
+                        # the float32 kernel values, factorized in float64:
+                        # escalating the jitter would let the float32
+                        # factorization succeed and the solve lose accuracy
+                        Lp = _cholesky_f64_rescue(K.double(), jitter)
+                        if Lp is None:
+                            raise ValueError(
+                                "The landmark kernel is not positive definite "
+                                "even in float64 after jitter escalation."
+                            )
 
-        if rescued is None:
-            Kuf = cov_func(xu, x)
-            A = _solve(Lp, Kuf)
-            r = y - mu
-            if per_feature:
-                weights = _per_feature_sparse_weights(
-                    Lp, A, r, _normalize_per_feature_sigma(sigma), jitter
-                )
-                L_B = None
-            else:
-                r_l, A_l = (r, A) if y_is_mean else _process_sigma(sigma, r, A, jitter=jitter)
-                weights, L_B = _sparse_solve(Lp, A, r_l, A_l)
+        # the solves run in Lp's dtype, float64 after the rescue; what is
+        # stored is rounded to the kernel's dtype
+        Kuf = cov_func(xu, x)
+        dtype, work = Kuf.dtype, Lp.dtype
+        sigma_w = sigma.to(work) if isinstance(sigma, torch.Tensor) else sigma
+        A = _solve(Lp, Kuf.to(work))
+        r = (y - mu).to(work)
+        if per_feature:
+            weights = _per_feature_sparse_weights(
+                Lp, A, r, _normalize_per_feature_sigma(sigma_w), jitter
+            )
+            L_B = None
+        else:
+            r_l, A_l = (r, A) if y_is_mean else _process_sigma(sigma_w, r, A, jitter=jitter)
+            weights, L_B = _sparse_solve(Lp, A, r_l, A_l)
 
         self.cov_func = cov_func
         self.landmarks = xu
-        self.weights = weights
+        self.weights = weights.to(dtype)
         self.mu = mu
         self.jitter = jitter
         self.sigma = original_sigma
@@ -818,17 +789,14 @@ class _LandmarksConditional:
         }
 
         if obs_variance:
-            self._compute_obs_variance(
-                y, mu, sigma, jitter, weights, Lp, Kuf, A, rescued, per_feature
-            )
+            self._compute_obs_variance(y, mu, sigma_w, jitter, Lp, Kuf, A, per_feature)
 
         if not with_uncertainty:
             return
-        self.L = Lp
+        self.L = Lp.to(dtype)
         self._state_variables.add("L")
         if not per_feature:
-            # rescued: the product of the float64 factors
-            self.Cs = Lp @ L_B if rescued is None else (rescued[0] @ rescued[1]).to(Lp.dtype)
+            self.Cs = (Lp @ L_B).to(dtype)
             self._state_variables.add("Cs")
         if not y_is_mean or per_feature:
             # a per-feature σ has no shared L_B: no W, and mean_covariance
@@ -839,40 +807,30 @@ class _LandmarksConditional:
             if y_cov_factor is not None
             else _sigma_to_y_cov_factor(sigma, None, x.shape[0], x)
         )
-        if rescued is None:
-            Z = _solve(L_B.T, _solve(L_B, A @ y_l), lower=False)
-            self.W = _solve(Lp.T, Z, lower=False)
-        else:
-            Lp64, LB64, A64, _ = rescued
-            Z64 = _solve(LB64.T, _solve(LB64, A64 @ y_l.double()), lower=False)
-            self.W = _solve(Lp64.T, Z64, lower=False).to(Lp.dtype)
+        Z = _solve(L_B.T, _solve(L_B, A @ y_l.to(work)), lower=False)
+        self.W = _solve(Lp.T, Z, lower=False).to(dtype)
         self._state_variables.add("W")
 
-    def _compute_obs_variance(self, y, mu, sigma, jitter, weights, Lp, Kuf, A, rescued, per_feature):
-        """HC3-corrected squared residuals smoothed by a second sparse GP;
-        after the float64 rescue its weights are solved in float64 too."""
-        prediction = mu + Kuf.T @ weights
-        B = Kuf.T
-        K_uu = Lp @ Lp.T
+    def _compute_obs_variance(self, y, mu, sigma, jitter, Lp, Kuf, A, per_feature):
+        """HC3-corrected squared residuals smoothed by a second sparse GP,
+        whose weights are solved in Lp's dtype (float64 after the rescue);
+        the leverage takes the stored weights and factor."""
+        prediction = mu + Kuf.T @ self.weights
+        Lp_stored = Lp.to(Kuf.dtype)
         sigma_h = _normalize_per_feature_sigma(sigma) if per_feature else sigma
-        h = _hat_diagonal(B, K_uu, sigma_h, jitter, per_feature=per_feature)
+        h = _hat_diagonal(Kuf.T, Lp_stored @ Lp_stored.T, sigma_h, jitter, per_feature=per_feature)
         residual = y - prediction
         if residual.ndim > h.ndim:
             h = h[..., None]
         corrected_r2 = residual**2 / (1 - h) ** 2
         variance_mu = 0.0
-        r_var = corrected_r2 - variance_mu
-        if rescued is not None:
-            vw64, _, _, _ = _f64_landmarks_weights(
-                rescued[3], Kuf, r_var, sigma, jitter, False, per_feature
-            )
-            variance_weights = vw64.to(Lp.dtype)
-        elif per_feature:
+        r_var = (corrected_r2 - variance_mu).to(Lp.dtype)
+        if per_feature:
             variance_weights = _per_feature_sparse_weights(Lp, A, r_var, sigma_h, jitter)
         else:
             r_l, A_l = _process_sigma(sigma, r_var, A, jitter=jitter)
             variance_weights, _ = _sparse_solve(Lp, A, r_l, A_l)
-        self.variance_weights = variance_weights
+        self.variance_weights = variance_weights.to(Kuf.dtype)
         self.variance_mu = variance_mu
         self._corrected_r2 = corrected_r2
         self._state_variables |= {"variance_weights", "variance_mu"}

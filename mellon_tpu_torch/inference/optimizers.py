@@ -50,7 +50,7 @@ ADAM_B2 = 0.999
 ADAM_EPS = 1e-8  # added outside the square root, as optax's eps
 LEARN_RATE_DECAY = 1e-2  # the rate at step i is exp(-0.01 i)·lr0
 
-LBFGSResult = namedtuple("LBFGSResult", "pre_transformation loss n_steps n_evals")
+LBFGSResult = namedtuple("LBFGSResult", "pre_transformation loss n_steps n_evals converged")
 AdamResult = namedtuple("AdamResult", "pre_transformation opt_state losses")
 AdamState = namedtuple("AdamState", "count mu nu")
 _Trial = namedtuple("_Trial", "step phi dphi gnorm z value grad")
@@ -183,7 +183,8 @@ def minimize_lbfgs(
     """Minimize ``value_and_grad(z) -> (loss, grad)`` from ``initial_value``.
 
     Stops once ‖g‖ < tol·max(1, |loss|) (after at least one step), after
-    ``max_iter`` steps, or when the line search finds no decrease.
+    ``max_iter`` steps, or when the line search finds no decrease; the
+    result's ``converged`` says whether the first of these held.
     """
     fun = value_and_grad
     z = initial_value.clone()
@@ -226,7 +227,7 @@ def minimize_lbfgs(
         z, value, grad, phi, gnorm = trial.z, trial.value, trial.grad, trial.phi, trial.gnorm
         count += 1
     logger.info("L-BFGS finished after %d steps with loss %.6g.", count, phi)
-    return LBFGSResult(z, phi, count, n_evals)
+    return LBFGSResult(z, phi, count, n_evals, gnorm < tol * max(1.0, abs(phi)))
 
 
 def adam_init(params):

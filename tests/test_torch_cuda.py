@@ -332,13 +332,13 @@ def test_hat_diagonal_float64_rescue_stays_on_card(cuda, monkeypatch):
     xu = torch.tensor(rng.randn(300, 3), dtype=torch.float32, device=cuda)
     B, K = cov(x, xu), cov(xu, xu)
     seen = []
-    factor = conditionals._cholesky
+    chunk = conditionals._hat_chunk
 
-    def recording(A):
-        seen.append((A.device.type, A.dtype))
-        return factor(A)
+    def recording(M, *args):
+        seen.append((M.device.type, M.dtype))
+        return chunk(M, *args)
 
-    monkeypatch.setattr(conditionals, "_cholesky", recording)
+    monkeypatch.setattr(conditionals, "_hat_chunk", recording)
     h = conditionals._hat_diagonal(B, K, 1e-3, 1e-6)
     assert h.device.type == "cuda" and h.dtype == torch.float32
     assert ("cuda", torch.float64) in seen

@@ -304,13 +304,17 @@ def _f64_truth(x, xu, r, ls, s2):
 
 
 def _conditional_f32(package, x, xu, y, **kwargs):
+    """The package's float32 LandmarksConditional at ls = 40 and its mean at
+    x[:40]; numpy keyword arguments (σ) become the package's arrays."""
     if package == "jax":
+        kwargs = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kwargs.items()}
         with jax_x64_off():
             c = jc.LandmarksConditional(
                 jnp.asarray(x), jnp.asarray(xu), jnp.asarray(y), 0.0, JaxMatern52(ls=40.0),
                 **kwargs,
             )
             return c, np.asarray(c._mean(jnp.asarray(x[:40])), dtype=np.float64)
+    kwargs = {k: torch.tensor(v) if isinstance(v, np.ndarray) else v for k, v in kwargs.items()}
     c = mt.LandmarksConditional(
         torch.tensor(x), torch.tensor(xu), torch.tensor(y), 0.0, mt.Matern52(ls=40.0), **kwargs
     )
@@ -376,6 +380,80 @@ def test_hat_diagonal_float64_rescue_matches_float64():
     h64 = tc._hat_diagonal(B.double(), K.double(), 1e-3, 1e-6)
     assert h.dtype == torch.float32
     np.testing.assert_allclose(to_np(h), np.clip(to_np(h64), 0, 1 - 1e-6), atol=1e-6)
+
+
+def _rescue_case(case, x, y):
+    """σ and y of one σ shape on the float32-singular operands."""
+    rs = np.random.RandomState(9)
+    n = x.shape[0]
+    y2 = np.stack([y, np.cos(x[:, 1])], axis=1).astype(np.float32)
+    if case in ("(n,)", "(n,1)"):
+        sigma = (0.1 + 0.05 * rs.rand(n)).astype(np.float32)
+        return (sigma if case == "(n,)" else sigma[:, None]), y
+    if case == "(p,)":
+        return np.array([0.1, 0.2], dtype=np.float32), y2
+    if case == "(n,p)":
+        return (0.1 + 0.05 * rs.rand(n, 2)).astype(np.float32), y2
+    if case == "(n,n)":
+        G = rs.rand(n, 3)
+        return (0.01 * np.eye(n) + 1e-3 * G @ G.T).astype(np.float32), y
+    return 0.1, y
+
+
+@pytest.mark.parametrize(
+    "case", ["scalar", "(n,)", "(n,1)", "(p,)", "(n,p)", "(n,n)", "y_is_mean"]
+)
+def test_f32_rescue_every_sigma_shape_matches_jax(singular_f32, case):
+    """The float64 rescue of a float32-singular landmark kernel for each σ
+    shape it takes, and y_is_mean with uncertainty: every landmark kept,
+    float32 results, the mean (and the mean covariance, whose W is solved
+    in float64 too) within 2e-3 of the scale of mellon_tpu's host rescue
+    (given the (n,) σ where the port takes (n, 1), which that refuses)."""
+    x, xu, y = singular_f32
+    sigma, y = _rescue_case(case, x, y)
+    kwargs = dict(sigma=sigma)
+    if case == "y_is_mean":
+        kwargs.update(y_is_mean=True, with_uncertainty=True)
+    c, got = _conditional_f32("torch", x, xu, y, **kwargs)
+    jkwargs = {**kwargs, "sigma": sigma[:, 0]} if case == "(n,1)" else kwargs
+    jc_, want = _conditional_f32("jax", x, xu, y, **jkwargs)
+    assert c.landmarks.shape[0] == 200 and c.weights.dtype == torch.float32
+    assert np.abs(got - want).max() <= 2e-3 * np.abs(want).max()
+    if case == "y_is_mean":
+        mc = to_np(c._mean_covariance(torch.tensor(x[:40]))).astype(np.float64)
+        with jax_x64_off():
+            jmc = np.asarray(jc_._mean_covariance(jnp.asarray(x[:40])), dtype=np.float64)
+        assert np.abs(mc - jmc).max() <= 2e-3 * np.abs(jmc).max()
+
+
+@pytest.mark.parametrize("sigma", ["(p,)", "(n,p)"])
+def test_f32_leverage_leaves_float32_at_the_first_failing_chunk(singular_f32, monkeypatch, sigma):
+    """A per-feature leverage in chunks of one feature whose float32 M is
+    singular: the float32 pass stops at its first chunk, before any solve,
+    and the float64 pass computes every chunk."""
+    x, xu, _ = singular_f32
+    cov = mt.Matern52(ls=5.0)
+    B, K = cov(torch.tensor(x), torch.tensor(xu)), cov(torch.tensor(xu), torch.tensor(xu))
+    p = 4
+    s = torch.full((p,), 0.1) if sigma == "(p,)" else torch.full((x.shape[0], p), 0.1)
+    monkeypatch.setattr(tc, "FEATURE_CHUNK_BYTES", 1)
+    seen, chunk, solve = [], tc._hat_chunk, tc._solve
+    solves = []
+
+    def recording(M, *args):
+        seen.append(M.dtype)
+        return chunk(M, *args)
+
+    def counting(A, *args, **kwargs):
+        solves.append(A.dtype)
+        return solve(A, *args, **kwargs)
+
+    monkeypatch.setattr(tc, "_hat_chunk", recording)
+    monkeypatch.setattr(tc, "_solve", counting)
+    h = tc._hat_diagonal(B, K, s, 1e-6, per_feature=True)
+    assert h.shape == (x.shape[0], p) and h.dtype == torch.float32
+    assert seen == [torch.float32] + [torch.float64] * p
+    assert torch.float32 not in solves
 
 
 @pytest.mark.parametrize("cls", ["FullConditional", "LandmarksConditional"])

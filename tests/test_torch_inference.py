@@ -69,7 +69,15 @@ def test_lbfgs_stopping_rule_and_log(caplog):
         res = minimize_lbfgs(fun, t64(z0))
     value, grad = fun(res.pre_transformation)
     assert float(grad.norm()) < 1e-5 * max(1.0, abs(float(value)))
+    assert res.converged
     assert f"L-BFGS finished after {res.n_steps} steps with loss" in caplog.text
+
+
+def test_lbfgs_reports_an_unmet_tolerance():
+    """A run cut by max_iter before ‖g‖ < tol·max(1, |loss|) says so."""
+    L, nn, z0 = _problem(seed=13)
+    res = minimize_lbfgs(make_density_value_and_grad(t64(L), t64(nn), 4, -2.5), t64(z0), max_iter=2)
+    assert res.n_steps == 2 and not res.converged
 
 
 def test_state_from_jax_round_trips_predictor():
