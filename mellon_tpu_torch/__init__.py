@@ -8,7 +8,9 @@ Hessian-preconditioned sampling, SMC, and their diagnostics in
 :mod:`.inference`); ``FunctionEstimator`` (gene trends: the conditional
 mean under scalar, per-feature or per-observation noise, the leverage and
 the observation variance) and ``DimensionalityEstimator`` (the local
-dimensionality jointly with the density); and their predictors: the mean,
+dimensionality jointly with the density); ``TimeSensitiveDensityEstimator``
+(the density over cell states and time, with the time length scale given
+or fit from per-time densities); and their predictors: the mean,
 its covariance and uncertainty, gradient and Hessian, and JSON in the
 format mellon_tpu reads.  The Matern-5/2 covariance tile is a hand-written CUDA
 kernel for ``sm_90a`` (``csrc/matern52_tile.cu``), built from source at
@@ -23,13 +25,17 @@ from .inference.conditionals import (
     ExpLandmarksConditional,
     ExpLandmarksConditionalCholesky,
     FullConditional,
+    FullConditionalTime,
     LandmarksConditional,
     LandmarksConditionalCholesky,
+    LandmarksConditionalCholeskyTime,
+    LandmarksConditionalTime,
 )
-from .inference.predictors import ExpPredictor, Predictor
+from .inference.predictors import ExpPredictor, Predictor, PredictorTime
 from .models.density import DensityEstimator
 from .models.dimensionality import DimensionalityEstimator
 from .models.function import FunctionEstimator
+from .models.time_density import TimeSensitiveDensityEstimator
 from .ops.kernels import (
     Covariance,
     Exponential,
@@ -41,7 +47,7 @@ from .ops.kernels import (
 )
 from .utils.util import GaussianProcessType
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 __all__ = [
     "__version__",
@@ -58,14 +64,19 @@ __all__ = [
     "Exponential",
     "ExpQuad",
     "FullConditional",
+    "FullConditionalTime",
     "FunctionEstimator",
     "GaussianProcessType",
     "LandmarksConditional",
     "LandmarksConditionalCholesky",
+    "LandmarksConditionalCholeskyTime",
+    "LandmarksConditionalTime",
     "Linear",
     "Matern32",
     "Matern52",
     "Predictor",
+    "PredictorTime",
     "RatQuad",
     "state_from_jax",
+    "TimeSensitiveDensityEstimator",
 ]

@@ -1,7 +1,8 @@
 """Bring a fitted ``mellon_tpu`` model over as this package's objects.
 
 ``state_from_jax`` reads the arrays of a fitted ``mellon_tpu``
-``DensityEstimator``, ``FunctionEstimator`` or ``DimensionalityEstimator``,
+``DensityEstimator``, ``TimeSensitiveDensityEstimator``,
+``FunctionEstimator`` or ``DimensionalityEstimator``,
 or of any of its conditional predictors, through numpy (this module never
 imports JAX) and builds the port's counterpart on the device and in the
 dtype asked for.  torch cannot reproduce JAX's threefry random stream, so
@@ -18,15 +19,18 @@ from .inference.losses import compute_dimensionality_transform, compute_transfor
 from .models.density import DensityEstimator
 from .models.dimensionality import DimensionalityEstimator
 from .models.function import FunctionEstimator
+from .models.time_density import TimeSensitiveDensityEstimator
 from .ops import kernels
 from .utils.util import GaussianProcessType
 
 # the fitted state each estimator carries over, beyond x and the kernel
+_DENSITY_STATE = (
+    "landmarks", "nn_distances", "d", "Lp", "L", "initial_value",
+    "pre_transformation", "pre_transformation_std",
+)
 _ESTIMATOR_STATE = {
-    "DensityEstimator": (
-        "landmarks", "nn_distances", "d", "Lp", "L", "initial_value",
-        "pre_transformation", "pre_transformation_std",
-    ),
+    "DensityEstimator": _DENSITY_STATE,
+    "TimeSensitiveDensityEstimator": _DENSITY_STATE,
     "DimensionalityEstimator": (
         "landmarks", "distances", "nn_distances", "d", "Lp", "L", "initial_value",
         "pre_transformation", "pre_transformation_std",
@@ -108,6 +112,7 @@ def state_from_jax(source, device=None, dtype=None):
 
     cls = {
         "DensityEstimator": DensityEstimator,
+        "TimeSensitiveDensityEstimator": TimeSensitiveDensityEstimator,
         "DimensionalityEstimator": DimensionalityEstimator,
         "FunctionEstimator": FunctionEstimator,
     }[name]
@@ -126,13 +131,16 @@ def state_from_jax(source, device=None, dtype=None):
         kwargs.update(k=source.k, mu_dim=float(source.mu_dim), mu_dens=float(source.mu_dens))
     else:
         kwargs.update(mu=float(source.mu))
+    if name == "TimeSensitiveDensityEstimator":
+        kwargs.update(ls_time=float(source.ls_time),
+                      normalize_per_time_point=_plain(source.normalize_per_time_point))
     est = cls(**kwargs)
     est.set_x(convert(source.x))
     for key in _ESTIMATOR_STATE[name]:
         setattr(est, key, convert(getattr(source, key, None)))
     est.gp_type = GaussianProcessType.from_string(source.gp_type.value)
     est.n_landmarks = int(source.n_landmarks)
-    if name == "DensityEstimator":
+    if name in ("DensityEstimator", "TimeSensitiveDensityEstimator"):
         est.d_method = source.d_method
     if name == "FunctionEstimator":
         if source.conditional is not None:

@@ -1,6 +1,8 @@
 """Conditional-GP predictors (counterpart of
 ``mellon_tpu/inference/conditionals.py``): three ways to condition, each as
-a plain predictor and as an exp-mean one (the dimensionality model's).
+a plain predictor, as an exp-mean one (the dimensionality model's) and as
+a time-aware one (``*Time``: the time-sensitive density model's, whose
+last input column is time).
 
 * :class:`FullConditional`: exact conditioning on every training point
   (the full GP type, and the FunctionEstimator without landmarks);
@@ -34,7 +36,7 @@ from ..ops.linalg import (
     select_stable_landmarks,
 )
 from ..utils.util import DEFAULT_JITTER, add_variance, ensure_2d, stabilize
-from .predictors import ExpPredictor, Predictor
+from .predictors import ExpPredictor, Predictor, PredictorTime
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -688,6 +690,10 @@ class ExpFullConditional(_FullConditional, ExpPredictor):
     pass
 
 
+class FullConditionalTime(_FullConditional, PredictorTime):
+    pass
+
+
 # ---------------------------------------------------------------------------
 # landmarks conditional
 # ---------------------------------------------------------------------------
@@ -899,6 +905,10 @@ class ExpLandmarksConditional(_LandmarksConditional, ExpPredictor):
     pass
 
 
+class LandmarksConditionalTime(_LandmarksConditional, PredictorTime):
+    pass
+
+
 # ---------------------------------------------------------------------------
 # landmarks-Cholesky conditional
 # ---------------------------------------------------------------------------
@@ -1064,4 +1074,8 @@ class LandmarksConditionalCholesky(_LandmarksConditionalCholesky, Predictor):
 
 
 class ExpLandmarksConditionalCholesky(_LandmarksConditionalCholesky, ExpPredictor):
+    pass
+
+
+class LandmarksConditionalCholeskyTime(_LandmarksConditionalCholesky, PredictorTime):
     pass

@@ -7,7 +7,8 @@ the conditional family from the model's configuration.
   landmarks (the FunctionEstimator's sparse path).
 
 ``compute_conditional_explog`` builds the exp-mean forms for the
-dimensionality model.
+dimensionality model, ``compute_conditional_times`` the time-aware ones
+for the time-sensitive density model.
 """
 
 import logging
@@ -20,8 +21,11 @@ from .conditionals import (
     ExpLandmarksConditional,
     ExpLandmarksConditionalCholesky,
     FullConditional,
+    FullConditionalTime,
     LandmarksConditional,
     LandmarksConditionalCholesky,
+    LandmarksConditionalCholeskyTime,
+    LandmarksConditionalTime,
 )
 from .losses import compute_parameter_cov_factor
 
@@ -156,4 +160,28 @@ def compute_conditional_explog(
         (ExpFullConditional, ExpLandmarksConditionalCholesky, ExpLandmarksConditional),
         x, landmarks, pre_transformation, pre_transformation_std, y, mu, cov_func,
         L, Lp, sigma, jitter, y_is_mean, with_uncertainty, logscale=True,
+    )
+
+
+def compute_conditional_times(
+    x,
+    landmarks,
+    pre_transformation,
+    pre_transformation_std,
+    y,
+    mu,
+    cov_func,
+    L,
+    Lp,
+    sigma=0,
+    jitter=DEFAULT_JITTER,
+    y_is_mean=False,
+    with_uncertainty=False,
+):
+    """The time-aware predictor of a time-sensitive fit (x's last column
+    is time), chosen as in :func:`compute_conditional`."""
+    return _conditional(
+        (FullConditionalTime, LandmarksConditionalCholeskyTime, LandmarksConditionalTime),
+        x, landmarks, pre_transformation, pre_transformation_std, y, mu, cov_func,
+        L, Lp, sigma, jitter, y_is_mean, with_uncertainty,
     )

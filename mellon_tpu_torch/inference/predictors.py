@@ -2,7 +2,9 @@
 the conditional mean, its covariance and uncertainty, the leverage, the
 leave-one-out residuals and the observation variance, derivatives, and
 JSON in the format that the JAX package and the reference Mellon read.
-:class:`ExpPredictor` returns exp of the mean (the local dimensionality).
+:class:`ExpPredictor` returns exp of the mean (the local dimensionality),
+:class:`PredictorTime` takes a time beside the states (one time for every
+row, a time per row, or a grid of times with ``multi_time``).
 
 A predictor written by mellon_tpu or the reference loads here, and one
 written here loads there: arrays are tagged ``"jax.numpy"``, classes are
@@ -28,8 +30,8 @@ import torch
 
 from ..config import resolve_device_dtype
 from ..ops.kernels import FOREIGN_PACKAGES, Covariance
-from ..utils.util import deserialize, ensure_2d, make_serializable
-from ..utils.validation import validate_array, validate_bool
+from ..utils.util import deserialize, ensure_2d, make_multi_time_argument, make_serializable
+from ..utils.validation import validate_array, validate_bool, validate_time_x
 from .derivatives import gradient, hessian, hessian_log_determinant
 
 logger = logging.getLogger("mellon_tpu_torch")
@@ -46,6 +48,38 @@ def _chunked_rows(fn, x, chunk_size=PREDICT_CHUNK_SIZE):
     if x.shape[0] <= chunk_size:
         return fn(x)
     return torch.cat([fn(x[s : s + chunk_size]) for s in range(0, x.shape[0], chunk_size)])
+
+
+def _normalization_warnings(obj):
+    """The d/d_method advisory of a normalized mean, with the JAX
+    package's messages: none for the fractal d, an info line for a manual
+    d, a warning for the embedding's (or an integral d of unknown
+    method)."""
+    if obj.d_method == "fractal":
+        return
+    if obj.d_method == "manual":
+        logger.info(
+            f"Using normalization with manually set d={obj.d}. "
+            "Note: Normalization is most effective when d approximates the "
+            "intrinsic dimensionality of the data."
+        )
+    elif (
+        obj.d_method is None
+        and isinstance(obj.d, (int, float))
+        and float(obj.d).is_integer()
+    ) or obj.d_method == "embedding":
+        logger.warning(
+            "The normalization is only effective if d approximates the "
+            f"intrinsic dimensionality. Current values: d_method={obj.d_method}, "
+            f'd={obj.d}. Consider using d_method="fractal" for more accurate '
+            "results."
+        )
+
+
+def _check_n_obs(obj, message):
+    if not obj.n_obs:
+        logger.error(message)
+        raise ValueError(message)
 
 
 def _release(version):
@@ -114,17 +148,15 @@ class Predictor(ABC):
         """Conditional mean at x, optionally normalized by log(n_obs)."""
         x = self._validate(x)
         normalize = validate_bool(normalize, "normalize")
-        out = _chunked_rows(self._mean, x)
         if not normalize:
-            return out
-        if not self.n_obs:
-            message = (
-                "Cannot normalize without n_obs. Please set self.n_obs to "
-                "the number of samples/cells trained on to enable normalization."
-            )
-            logger.error(message)
-            raise ValueError(message)
-        return out - math.log(self.n_obs)
+            return _chunked_rows(self._mean, x)
+        _check_n_obs(
+            self,
+            "Cannot normalize without n_obs. Please set self.n_obs to "
+            "the number of samples/cells trained on to enable normalization.",
+        )
+        _normalization_warnings(self)
+        return _chunked_rows(self._mean, x) - math.log(self.n_obs)
 
     __call__ = mean
 
@@ -328,8 +360,7 @@ def _resolve_predictor_class(clsname, module_name):
     raise ValueError(
         f"Cannot resolve predictor class {clsname} from module {module_name}: "
         "mellon_tpu_torch has the full, landmarks and landmarks-Cholesky "
-        "conditionals and their exp forms (ROADMAP Queue 1, item 15 brings "
-        "the time-aware ones)."
+        "conditionals, their exp forms and their time-aware forms."
     )
 
 
@@ -364,3 +395,86 @@ class ExpPredictor(Predictor):
     def uncertainty(self, *args, **kwargs):
         logger.warning("The uncertainty will be computed for the predicted value in log scale.")
         return super().uncertainty(*args, **kwargs)
+
+
+class PredictorTime(Predictor):
+    """A predictor whose last input column is time.  Each method takes the
+    states x (n, d − 1) and ``time``: a number for every row, or one time
+    per row; ``multi_time`` (T,) evaluates it at every time of a grid,
+    shape (n, T, ...)."""
+
+    def _with_time(self, x, time):
+        return validate_time_x(
+            x, time, n_features=self.n_input_features, cast_scalar=True,
+            dtype=self.dtype, device=self.device,
+        )
+
+    @make_multi_time_argument
+    def mean(self, x, time=None, normalize=False):
+        """Conditional mean at (x, time), optionally normalized by
+        log(n_obs), the cells per time point."""
+        x = self._with_time(x, time)
+        normalize = validate_bool(normalize, "normalize")
+        if not normalize:
+            return _chunked_rows(self._mean, x)
+        _check_n_obs(
+            self,
+            "Cannot normalize without n_obs. Please set self.n_obs to "
+            "the number of samples/cells (per time point) trained on "
+            "to enable normalization.",
+        )
+        _normalization_warnings(self)
+        return _chunked_rows(self._mean, x) - math.log(self.n_obs)
+
+    __call__ = mean
+
+    @make_multi_time_argument
+    def covariance(self, x, time=None, diag=True):
+        """Posterior covariance of the conditional GP at (x, time)."""
+        x = self._with_time(x, time)
+        if diag:
+            return _chunked_rows(lambda b: self._covariance(b, diag=True), x)
+        return self._covariance(x, diag=False)
+
+    @make_multi_time_argument
+    def mean_covariance(self, x, time=None, diag=True):
+        """Covariance of the mean from the latents' uncertainty."""
+        x = self._with_time(x, time)
+        if diag:
+            return _chunked_rows(lambda b: self._mean_covariance(b, diag=True), x)
+        return self._mean_covariance(x, diag=False)
+
+    @make_multi_time_argument
+    def uncertainty(self, x, time=None, diag=True):
+        """Total predictive uncertainty: covariance + mean_covariance."""
+        x = self._with_time(x, time)
+        return self._covariance(x, diag=diag) + self._mean_covariance(x, diag=diag)
+
+    @make_multi_time_argument
+    def time_derivative(self, x, time, jit=True):
+        """∂/∂t of the mean at (x, time), shape (n,)."""
+        return gradient(self._mean, self._with_time(x, time))[:, -1]
+
+    def _at_time(self, x, time):
+        """(states, the mean as a function of the states at ``time``)."""
+        x = self._with_time(x, time)
+        states, times = x[:, :-1], x[:, -1:]
+        return states, lambda s: self._mean(torch.cat([s, times], dim=1))
+
+    @make_multi_time_argument
+    def gradient(self, x, time, jit=True):
+        """Gradient of the mean in the states at (x, time), shape (n, d − 1)."""
+        states, mean_at_time = self._at_time(x, time)
+        return gradient(mean_at_time, states)
+
+    @make_multi_time_argument
+    def hessian(self, x, time, jit=True):
+        """Hessian of the mean in the states at (x, time)."""
+        states, mean_at_time = self._at_time(x, time)
+        return hessian(mean_at_time, states)
+
+    @make_multi_time_argument
+    def hessian_log_determinant(self, x, time, jit=True):
+        """``(sign, log|det|)`` of the Hessian in the states at (x, time)."""
+        states, mean_at_time = self._at_time(x, time)
+        return hessian_log_determinant(mean_at_time, states)

@@ -279,7 +279,9 @@ class BaseEstimator:
     def _compute_gp_type(self):
         return compute_gp_type(self.n_landmarks, self.rank, self.x.shape[0])
 
-    def _compute_landmarks(self):
+    def _landmark_seed(self):
+        """The k-means seed, after the advice for many cells and few
+        landmarks."""
         n_samples = self.x.shape[0]
         if n_samples > 100 * self.n_landmarks and n_samples > 1e6:
             logger.info(
@@ -288,9 +290,11 @@ class BaseEstimator:
                 "subset of cells and passing the results as 'landmarks' to speed "
                 "up the process."
             )
-        seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
+        return self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
+
+    def _compute_landmarks(self):
         return compute_landmarks(
-            self.x, self.gp_type, n_landmarks=self.n_landmarks, random_state=seed
+            self.x, self.gp_type, n_landmarks=self.n_landmarks, random_state=self._landmark_seed()
         )
 
     def _compute_nn_distances(self):

@@ -151,9 +151,13 @@ class DensityEstimator(BaseEstimator):
         self.log_density_x = None
         self.log_density_func = None
 
+    def _states(self):
+        """The training cells' state coordinates."""
+        return self.x
+
     def _compute_d(self):
         if self.d_method == "fractal":
-            d = compute_d_factal(self.x)
+            d = compute_d_factal(self._states())
             logger.info(f"Using d={d}.")
         elif self.d_method == "manual":
             if self.d is None:
@@ -164,7 +168,7 @@ class DensityEstimator(BaseEstimator):
             d = self.d
             logger.info(f"Using manually set d={d}.")
         else:
-            d = compute_d(self.x)
+            d = compute_d(self._states())
             logger.info(
                 f"Using embedding dimensionality d={d}. "
                 'Use d_method="fractal" to enable effective density normalization.'

@@ -5,6 +5,12 @@ k-means++ seeding draws on the device with ``torch.multinomial`` from a
 torch cannot reproduce JAX's threefry stream: the same seed gives other
 centroids than the JAX package, of comparable quality.  Hand-written
 assignment/update kernels are ROADMAP kernel K3.
+
+The same seed gives the same centroids on every run: Lloyd's update sorts
+the points by cluster and sums each cluster's in that order, where a
+scatter-add (``index_add_``) would add them in the order of the card's
+float atomics (``scripts/cluster_sums_bench.py`` times both and a one-hot
+product).
 """
 
 import torch
@@ -41,17 +47,25 @@ def _kmeanspp_init(x, k, generator):
     return centers
 
 
+def _cluster_sums(x_ones, idx, k):
+    """Per-cluster sums of the rows of ``x_ones`` (x with a column of
+    ones, whose sum is the count), (k, d + 1): the rows in a stable sort
+    by cluster, then one segment sum per cluster, which adds its rows in
+    that order (an empty cluster sums to 0).  Deterministic on the card."""
+    sorted_idx, order = torch.sort(idx, stable=True)
+    offsets = torch.searchsorted(sorted_idx, torch.arange(k + 1, device=idx.device))
+    return torch.segment_reduce(x_ones[order], "sum", offsets=offsets, axis=0, unsafe=True)
+
+
 def _lloyd(x, init_centroids, k, n_iter, block_size):
     """``n_iter`` Lloyd steps; an empty cluster keeps its centroid."""
     centroids = init_centroids
-    ones = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    x_ones = torch.cat([x, x.new_ones((x.shape[0], 1))], dim=1)
     for _ in range(n_iter):
         idx = _assign(x, centroids, block_size)
-        sums = torch.zeros_like(centroids).index_add_(0, idx, x)
-        counts = torch.zeros(k, dtype=x.dtype, device=x.device).index_add_(0, idx, ones)
-        centroids = torch.where(
-            counts[:, None] > 0, sums / torch.clamp_min(counts[:, None], 1), centroids
-        )
+        sums_counts = _cluster_sums(x_ones, idx, k)
+        sums, counts = sums_counts[:, :-1], sums_counts[:, -1:]
+        centroids = torch.where(counts > 0, sums / torch.clamp_min(counts, 1), centroids)
     return centroids
 
 

@@ -14,14 +14,20 @@ import torch
 
 from .ops.cluster import k_means
 from .ops.linalg import DEFAULT_SIGMA, _full_rank, _standard_low_rank, ridge_solve
-from .ops.neighbors import knn_distances, local_dimensionality
-from .utils.parameter_validation import validate_params
+from .ops.neighbors import EXACT_CAND_DIM_MAX, knn_distances, local_dimensionality
+from .utils.parameter_validation import (
+    NORMALIZE_SEQUENCES,
+    validate_normalize_parameter,
+    validate_params,
+)
 from .utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, mle
 from .utils.validation import (
     validate_float_or_int,
+    validate_float_or_iterable_numerical,
     validate_k,
     validate_positive_float,
     validate_positive_int,
+    validate_time_x,
 )
 
 DEFAULT_N_LANDMARKS = 5000
@@ -212,9 +218,130 @@ def compute_ls(nn_distances):
     return float(torch.exp(torch.log(nn_distances).mean() + 3.0))
 
 
-def compute_cov_func(cov_func_curry, ls):
-    """Kernel from its curry and the length scale."""
+def compute_cov_func(cov_func_curry, ls, ls_time=None):
+    """Kernel from its curry and the length scale; with ``ls_time``, the
+    space × time product kernel: the state columns at ``ls`` times the
+    last (time) column at ``ls_time``."""
+    if ls_time is not None:
+        return cov_func_curry(ls=ls, active_dims=slice(None, -1)) * cov_func_curry(
+            ls=ls_time, active_dims=-1
+        )
     return cov_func_curry(ls=ls)
+
+
+def compute_landmarks_rescale_time(
+    x, ls, ls_time, times=None, n_landmarks=DEFAULT_N_LANDMARKS, random_state=DEFAULT_RANDOM_SEED
+):
+    """Landmarks by k-means in (state, time) space with the time column
+    scaled by ls / ls_time, so that both kernels' length scales weigh
+    alike; the landmarks' time column is scaled back."""
+    if n_landmarks == 0:
+        return None
+    ls = validate_positive_float(ls, "ls")
+    ls_time = validate_positive_float(ls_time, "ls_time")
+    x = validate_time_x(x, times).clone()
+    time_factor = ls / ls_time
+    x[:, -1] *= time_factor
+    landmarks = compute_landmarks(x, n_landmarks=n_landmarks, random_state=random_state)
+    if landmarks is not None:
+        landmarks[:, -1] /= time_factor
+    return landmarks
+
+
+def _get_target_cell_count(normalize, time, av_cells_per_tp, unique_times):
+    """The target cell count of time point ``time`` (a float) under
+    ``normalize``: the average for True, else its entry."""
+    if isinstance(normalize, bool):
+        return av_cells_per_tp
+    if isinstance(normalize, dict):
+        return normalize[time]
+    return normalize[unique_times.tolist().index(time)]
+
+
+# above this many time points the within-time 1-NN distances run one
+# search per time point
+MAX_ONEHOT_TIME_GROUPS = 64
+
+
+def within_time_augmented(states, group, n_times):
+    """The states with columns that keep every cell's nearest neighbours
+    within its time group, for one search over all cells.
+
+    At most EXACT_CAND_DIM_MAX − 1 state dimensions: one column
+    C·group, C² above every within-group squared distance; within a group
+    it subtracts to exactly 0, so the distances are those of a search per
+    group, and across groups they are at least C.  Above that the search
+    selects candidates by the |x|² − 2x·y + |y|² form, and a one-hot of
+    the group, scaled alike, keeps the norms' inflation the same in every
+    group."""
+    span2 = torch.sum(torch.square(states.max(dim=0).values - states.min(dim=0).values))
+    if states.shape[1] + 1 <= EXACT_CAND_DIM_MAX:
+        offset = 4.0 * torch.sqrt(torch.clamp_min(span2, 1.0))
+        return torch.cat([states, (offset * group.to(states.dtype))[:, None]], dim=1)
+    big = 16.0 * torch.clamp_min(span2, 1.0)
+    onehot = torch.nn.functional.one_hot(group, n_times).to(states.dtype)
+    return torch.cat([states, torch.sqrt(big / 2.0) * onehot], dim=1)
+
+
+def compute_nn_distances_within_time_points(x, times=None, d=None, normalize=False):
+    """1-NN distances of each cell within its time point, optionally
+    scaled by (cells at its time / target cells) ** (1/d) to correct the
+    sampling bias between time points (``normalize``: True for the
+    average count, or a target per time point as a dict, list, array or
+    tensor)."""
+    x = validate_time_x(x, times)
+    unique_times = torch.unique(x[:, -1])
+    n_cells = x.shape[0]
+    n_times = unique_times.shape[0]
+    av_cells_per_tp = n_cells / n_times
+    validate_normalize_parameter(normalize, unique_times)
+    normalizing = normalize is not False and normalize is not None
+    if normalizing:
+        d = validate_float_or_iterable_numerical(d, "d", optional=False, positive=True)
+        if isinstance(d, torch.Tensor):
+            if d.ndim > 0 and len(d) != n_cells:
+                raise ValueError(
+                    f"If `d` (length={len(d):,}) is a vector then it needs to have "
+                    f"one value per cell in x (x.shape[0]={n_cells:,})."
+                )
+            d = d.to(device=x.device, dtype=x.dtype)
+        logger.info(
+            "Normalizing nearest neighbor distances correcting sampling bias "
+            f"for {n_times:,} different time points."
+        )
+    states = x[:, :-1]
+    group = torch.searchsorted(unique_times, x[:, -1].contiguous())
+    counts = torch.bincount(group, minlength=n_times)
+    for time, count in zip(unique_times.tolist(), counts.tolist()):
+        if count < 2:
+            raise ValueError(
+                f"Insufficient data: Only {int(count)} sample(s) found at "
+                f"time point {time}. Nearest neighbors cannot be computed "
+                "with less than two samples per time point. Please confirm if "
+                "you have provided the correct time axis. If the time points "
+                "indeed have very few samples, consider aggregating nearby "
+                "time points for better results, or you may specify "
+                "`nn_distances` manually."
+            )
+    if n_times <= MAX_ONEHOT_TIME_GROUPS:
+        nn_distances = compute_nn_distances(within_time_augmented(states, group, n_times))
+    else:
+        nn_distances = states.new_zeros(n_cells)
+        for i in range(n_times):
+            mask = group == i
+            nn_distances[mask] = compute_nn_distances(states[mask])
+    if normalizing:
+        targets = torch.tensor(
+            [
+                float(_get_target_cell_count(normalize, t, av_cells_per_tp, unique_times))
+                for t in unique_times.tolist()
+            ],
+            dtype=x.dtype,
+            device=x.device,
+        )
+        factor = (counts[group].to(x.dtype) / targets[group]) ** (1 / d)
+        nn_distances = factor * nn_distances
+    return nn_distances
 
 
 def compute_Lp(x, cov_func, gp_type=None, landmarks=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
@@ -285,6 +412,28 @@ def compute_initial_value(nn_distances, d, mu, L):
     """Ridge warm start: z minimizing ||Lz + mu - mle||² + ||z||²."""
     target = mle(nn_distances, d) - mu
     return ridge_solve(L, target, 1.0)
+
+
+def compute_average_cell_count(x, normalize):
+    """Cells per time point for the time predictor's normalization: the
+    average over the data for a bool or None, else the average of the
+    targets."""
+    n_unique_times = torch.unique(x[:, -1]).shape[0]
+    if normalize is None or isinstance(normalize, bool):
+        return x.shape[0] / n_unique_times
+    if isinstance(normalize, dict):
+        return sum(normalize.values()) / n_unique_times
+    if isinstance(normalize, NORMALIZE_SEQUENCES):
+        return float(sum(float(v) for v in normalize)) / len(normalize)
+    raise ValueError(f"Unrecognized type for 'normalize': {type(normalize)}")
+
+
+def compute_time_derivatives(predictor, x, times=None):
+    """d/dt of a time predictor at (x, times); zeros for a predictor
+    without time."""
+    if hasattr(predictor, "time_derivative"):
+        return predictor.time_derivative(x, times)
+    return torch.zeros(x.shape[0], dtype=predictor.dtype, device=predictor.device)
 
 
 def compute_initial_dimensionalities(x, mu_dim, mu_dens, L, nn_distances, d):

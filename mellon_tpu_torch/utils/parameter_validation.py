@@ -7,10 +7,17 @@ kernel arguments.
 
 import logging
 
+import numpy as np
+import torch
+
 from .util import GaussianProcessType
 from .validation import validate_float_or_int, validate_positive_int
 
 logger = logging.getLogger("mellon_tpu_torch")
+
+# the sequence forms of normalize_per_time_point, one target per time
+# point: the JAX package's list and array (here numpy's or torch's)
+NORMALIZE_SEQUENCES = (list, np.ndarray, torch.Tensor)
 
 _SPARSE_TYPES = frozenset(
     {GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.SPARSE_NYSTROEM}
@@ -125,6 +132,25 @@ def validate_params(rank, gp_type, n_samples, n_landmarks, landmarks):
         )
     validate_gp_type(gp_type, n_samples, n_landmarks)
     validate_rank_params(gp_type, n_samples, rank, n_landmarks)
+
+
+def validate_normalize_parameter(normalize, unique_times):
+    """Per-time normalization targets must cover every time point: a dict
+    needs an entry for each, a sequence (list, array or tensor) one value
+    per time point in order."""
+    times = unique_times.tolist()
+    if isinstance(normalize, dict):
+        uncovered = [t for t in times if t not in normalize]
+        if uncovered:
+            raise ValueError(
+                f"The normalization dictionary lacks entries for time point(s): {uncovered}"
+            )
+        return
+    if isinstance(normalize, NORMALIZE_SEQUENCES) and len(normalize) != len(times):
+        raise ValueError(
+            f"normalize has {len(normalize)} entries but there are "
+            f"{len(times)} unique time points; the counts must match."
+        )
 
 
 def validate_cov_func_curry(cov_func_curry, cov_func, param_name):

@@ -4,9 +4,12 @@ active dims and the typed JSON encoding.
 Counterpart of ``mellon_tpu/utils/util.py`` for the density path.
 """
 
+import functools
+import inspect
 import logging
 import math
 from enum import Enum
+from inspect import Parameter
 
 import numpy as np
 import torch
@@ -114,6 +117,55 @@ def mle(nn_distances, d):
 def ensure_2d(X):
     """Promote a 1-d tensor to one column per sample."""
     return X[:, None] if X.ndim == 1 else X
+
+
+def make_multi_time_argument(func):
+    """Add a ``multi_time`` argument to a time predictor's method
+    ``func(self, x, time, ...)``: the method at every time of the grid,
+    stacked on axis 1 of the result ((n, T, ...)).
+
+    The JAX package maps the method over the grid.  Here every row of x
+    is paired with every time in one call (n·T rows, one kernel launch per
+    factor of the product kernel), and the result is reshaped; a full
+    covariance (``diag=False``), which is not row-wise, is taken time by
+    time.
+    """
+    sig = inspect.signature(func)
+    x_name = list(sig.parameters)[1]
+    new_sig = sig.replace(
+        parameters=[
+            *sig.parameters.values(),
+            Parameter("multi_time", Parameter.POSITIONAL_OR_KEYWORD, default=None),
+        ]
+    )
+
+    @functools.wraps(func)
+    def wrapper(self, *args, **kwargs):
+        multi_time = kwargs.pop("multi_time", None)
+        if multi_time is None:
+            return func(self, *args, **kwargs)
+        bound = sig.bind_partial(self, *args, **kwargs)
+        if bound.arguments.get("time") is not None:
+            raise ValueError("Cannot specify both 'time' and 'multi_time' arguments")
+        from .validation import validate_array
+
+        grid = validate_array(multi_time, "multi_time", dtype=self.dtype, device=self.device)
+        grid = grid.reshape(-1)
+        if bound.arguments.get("diag", True) is False:
+            return torch.stack(
+                [func(self, *args, **kwargs, time=float(t)) for t in grid.tolist()], dim=1
+            )
+        x = validate_array(bound.arguments[x_name], "x", ndim=2, dtype=self.dtype, device=self.device)
+        n, T = x.shape[0], grid.shape[0]
+        bound.arguments[x_name] = x.repeat_interleave(T, dim=0)
+        bound.arguments["time"] = grid.repeat(n)
+        out = func(*bound.args, **bound.kwargs)
+        if isinstance(out, tuple):
+            return tuple(o.reshape(n, T, *o.shape[1:]) for o in out)
+        return out.reshape(n, T, *out.shape[1:])
+
+    wrapper.__signature__ = new_sig
+    return wrapper
 
 
 def test_rank(input, tol=DEFAULT_RANK_TOL, threshold=None):

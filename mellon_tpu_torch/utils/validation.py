@@ -59,6 +59,61 @@ def validate_array(iterable, name, optional=False, ndim=None, dtype=None, device
     return array
 
 
+def _is_scalar_time(times):
+    return isinstance(times, (int, float, np.generic)) or (
+        hasattr(times, "shape") and all(s == 1 for s in times.shape)
+    )
+
+
+def validate_time_x(x, times=None, n_features=None, cast_scalar=False, dtype=None, device=None):
+    """x (n, d) with the time column appended: ``times`` (n,) or (n, 1),
+    or, with ``cast_scalar``, one time for every row.  Without ``times``
+    x must already hold it.  ``n_features`` checks the width of the
+    result, with the JAX package's messages."""
+    x = validate_array(x, "x", ndim=2, dtype=dtype, device=device)
+    if cast_scalar and times is not None and _is_scalar_time(times):
+        if isinstance(times, torch.Tensor):
+            # expand, not a copy of its value: a time that requires grad
+            # keeps its graph
+            times = times.reshape(()).expand(x.shape[0])
+        else:
+            times = torch.full((x.shape[0],), float(np.asarray(times).reshape(())))
+    times = validate_array(times, "times", optional=True, ndim=(1, 2))
+    if times is not None:
+        if times.ndim == 1:
+            times = times.reshape(-1, 1)
+        elif times.shape[1] != 1:
+            raise ValueError("'times' must be a 1D array or a 2D array with 1 column.")
+        if x.shape[0] != times.shape[0]:
+            raise ValueError(
+                "'x' and 'times' must have the same number of samples. "
+                f"Got {x.shape[0]} for 'x' and {times.shape[0]} for 'times'."
+            )
+        x = torch.cat((x, times.to(device=x.device, dtype=x.dtype)), dim=1)
+    if n_features is not None:
+        if x.shape[1] == n_features - 1 and times is None:
+            raise ValueError(
+                f"Expected {n_features} features including 'times' in 'x' but "
+                f"only found {x.shape[1]} features and 'times' is not provided."
+            )
+        if x.shape[1] != n_features:
+            raise ValueError(
+                f"Wrong number of features in 'x'. Expected {n_features} "
+                f"but got {x.shape[1]}."
+            )
+    return x
+
+
+def validate_1d(x):
+    """x as a 1-d float64 tensor (a scalar becomes one element)."""
+    x = validate_array(x, "x")
+    if x.ndim == 0:
+        x = x[None]
+    if x.ndim != 1:
+        raise ValueError("`x` must be exactly 1-dimensional.")
+    return x
+
+
 def validate_float_or_int(value, param_name, optional=False):
     if value is None and optional:
         return None

@@ -3,12 +3,13 @@
 
 Run from the root of the repository on a machine with an NVIDIA GPU:
 
-    python3 scripts/nuts_probe.py 4:200/200 4:100/50 ...
+    python3 scripts/nuts_probe.py 4:200/200 4:100/50 16:100/50@43 ...
 
-Each argument is chains:warmup/draws.  It prepares DensityEstimator() on
+Each argument is chains:warmup/draws, optionally @seed (default 42).  It
+prepares DensityEstimator() on
 the 8,627 x 20 benchmark cells (benchdata/ld_ref_8627x20_f64.npz) in
 float32, finds the L-BFGS MAP and zero-centres the potential there, as
-optimizer="nuts" does, and then runs run_mcmc (depth 10, seed 42) once per
+optimizer="nuts" does, and then runs run_mcmc (depth 10) once per
 argument.  It prints the card's name and power limit, the loss at the warm
 start and at the MAP, and per run one JSON line: seconds, the lockstep
 leaves of the whole run and of the sampling transitions, ms per leaf, step
@@ -54,19 +55,21 @@ def main():
         return value_and_grad(Z)
 
     for arg in sys.argv[1:]:
+        arg, _, seed = arg.partition("@")
+        seed = int(seed) if seed else 42
         chains, run = arg.split(":")
         warmup, draws = (int(v) for v in run.split("/"))
         chains = int(chains)
         rows[0] = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = mcmc.run_mcmc(counted, z_map, torch.Generator(device="cuda").manual_seed(42),
+        res = mcmc.run_mcmc(counted, z_map, torch.Generator(device="cuda").manual_seed(seed),
                             num_warmup=warmup, num_samples=draws, num_chains=chains)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         ess = effective_sample_size(res.samples)
         print(json.dumps({
-            "chains": chains, "warmup": warmup, "draws": draws, "seconds": seconds,
+            "chains": chains, "warmup": warmup, "draws": draws, "seed": seed, "seconds": seconds,
             "leaves": rows[0] / chains, "sampling_leaves": res.num_evaluations / chains,
             "ms_per_leaf": 1e3 * seconds * chains / rows[0], "step_size": float(res.step_size),
             "mean_accept": float(res.accept_prob.mean()),

@@ -365,3 +365,105 @@ def test_function_and_dimensionality_launch_the_kernel(cuda):
     torch.cuda.synchronize()
     assert matern52_gram.launches > before
     assert torch.isfinite(local).all() and (local > 0).all()
+
+
+def test_same_seed_fits_are_identical_on_card(cuda):
+    """Two default fits with the same seed at the benchmark shape (8,627 x
+    20 cells, 5,000 k-means landmarks pruned at float32): bit-identical
+    k-means landmarks, bit-identical kept landmarks and latents, and the
+    same final loss.  Lloyd's update sums by one-hot products in a fixed
+    order, not by float atomics."""
+    from mellon_tpu_torch.parameters import compute_landmarks
+
+    x = np.asarray(np.load(ROOT / "benchdata" / "ld_ref_8627x20_f64.npz")["x"], dtype=np.float32)
+    xt = torch.as_tensor(x, device=cuda)
+    first, second = (compute_landmarks(xt, n_landmarks=5000, random_state=42) for _ in range(2))
+    assert torch.equal(first, second)
+    fits = []
+    for _ in range(2):
+        est = mellon_tpu_torch.DensityEstimator(device=cuda)
+        est.fit(x)
+        fits.append(est)
+    a, b = fits
+    assert torch.equal(a.landmarks, b.landmarks)
+    assert torch.equal(a.pre_transformation, b.pre_transformation)
+    assert a.opt_state.loss == b.opt_state.loss and a.opt_state.n_steps == b.opt_state.n_steps
+
+
+def _time_cells(n_per, seed):
+    rng = np.random.RandomState(seed)
+    x = np.concatenate([rng.randn(n_per, 2) + 0.5 * t for t in range(3)])
+    return x, np.repeat(np.arange(3.0), n_per)
+
+
+def test_time_predictor_on_card_matches_cpu_float64(cuda):
+    """A time-sensitive fit's predictor, carried to the card in float64 by
+    its JSON state: the mean over a time grid, the time derivative, the
+    gradient and the Hessian's log-determinant at one time equal the CPU's
+    (1e-10 of the largest value), and the card launches the kernel."""
+    x, times = _time_cells(200, 74)
+    est = mellon_tpu_torch.TimeSensitiveDensityEstimator(
+        n_landmarks=150, ls_time=1.5, device="cpu", dtype=torch.float64)
+    est.fit(x, times)
+    cpu = est.predict
+    card = mellon_tpu_torch.Predictor.from_dict(cpu.to_dict(), device=cuda, dtype=torch.float64)
+    assert type(card) is mellon_tpu_torch.LandmarksConditionalCholeskyTime
+    pts = x[:50] + 0.01
+    grid = np.linspace(0.0, 2.0, 7)
+    before = matern52_gram.launches
+    pairs = [
+        (card(pts, multi_time=grid), cpu(pts, multi_time=grid)),
+        (card.time_derivative(pts, 0.7), cpu.time_derivative(pts, 0.7)),
+        (card.gradient(pts, 0.7), cpu.gradient(pts, 0.7)),
+        (card.hessian_log_determinant(pts, 0.7)[1], cpu.hessian_log_determinant(pts, 0.7)[1]),
+    ]
+    torch.cuda.synchronize()
+    assert matern52_gram.launches > before
+    for got, want in pairs:
+        assert got.device.type == "cuda"
+        assert (got.cpu() - want).abs().max().item() <= 1e-10 * want.abs().max().item()
+
+
+def test_batched_cholesky_ladder_rescues_a_singular_group_on_card(cuda):
+    """float32 time groups of near-duplicate cells that no jitter
+    escalation factors: the batched ls_time fits rebuild, factor and
+    predict those groups in float64 on the card, and their densities track
+    the float64 fits (corr > 0.99 per group)."""
+    import logging
+
+    from mellon_tpu_torch.models import ls_time
+
+    rng = np.random.RandomState(0)
+    base = rng.randn(12, 2) * 0.02
+    xs, ts = [], []
+    for t in range(4):
+        xs.append(base[rng.randint(0, 12, 120)] + 2e-4 * rng.randn(120, 2) + 0.005 * t)
+        ts.append(np.full(120, float(t)))
+    xt = torch.tensor(np.concatenate([np.concatenate(xs), np.concatenate(ts)[:, None]], axis=1),
+                      dtype=torch.float32, device=cuda)
+    nn = mellon_tpu_torch.parameters.compute_nn_distances_within_time_points(xt)
+    ut = torch.unique(xt[:, -1])
+    kw = dict(jitter=1e-15, ls=1.0)
+    messages = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    logger = logging.getLogger("mellon_tpu_torch")
+    handler, level = Capture(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        dens32 = ls_time._batched_ls_time_densities(xt, nn, mellon_tpu_torch.Matern52, kw, ut, 500)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    dens64 = ls_time._batched_ls_time_densities(xt.double(), nn.double(), mellon_tpu_torch.Matern52,
+                                                kw, ut.double(), 500)
+    assert any("factorizing those groups in float64 on the device" in m for m in messages)
+    assert dens32.device.type == "cuda" and dens32.dtype == torch.float32
+    assert torch.isfinite(dens32).all()
+    for g in range(4):
+        a, b = dens32[g].double().cpu().numpy(), dens64[g].cpu().numpy()
+        assert np.corrcoef(a, b)[0, 1] > 0.99

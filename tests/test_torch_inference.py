@@ -5,6 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import CPU64, clustered, t64, to_np
 import mellon_tpu
@@ -106,3 +107,23 @@ def test_state_from_jax_round_trips_predictor():
     np.testing.assert_allclose(to_np(port_est.predict(x_new)), want, rtol=0, atol=1e-10)
     with pytest.raises(ValueError, match="features"):
         port(x_new[:, :2])
+
+
+def test_lbfgs_stops_where_the_line_search_finds_no_decrease(caplog):
+    """A loss whose reported gradient points uphill (the value is |z|²,
+    the gradient −2z): every trial step along the direction it gives
+    raises the loss.  The port stops where it is and reports
+    ``converged=False``; a
+    deliberate divergence from optax, whose zoom line search would move to
+    its last trial step anyway."""
+    z0 = torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64)
+
+    def uphill(z):
+        return torch.sum(z * z), -2.0 * z
+
+    with caplog.at_level("INFO", logger="mellon_tpu_torch"):
+        res = minimize_lbfgs(uphill, z0)
+    assert res.n_steps == 0 and not res.converged
+    torch.testing.assert_close(res.pre_transformation, z0, rtol=0, atol=0)
+    assert res.loss == float(torch.sum(z0 * z0))
+    assert "line search found no decrease after 0 steps" in caplog.text

@@ -114,6 +114,6 @@ def test_reference_module_names_and_own_version(fitted, caplog):
     assert not any("1.4.0" in r.message for r in caplog.records)
     state = pt.to_dict()
     state["metadata"]["module_name"] = "mellon_tpu.inference.conditionals"
-    state["metadata"]["classname"] = "FullConditionalTime"
-    with pytest.raises(ValueError, match="ROADMAP"):
+    state["metadata"]["classname"] = "UnknownConditional"
+    with pytest.raises(ValueError, match="Cannot resolve predictor class UnknownConditional"):
         Predictor.from_dict(state, **CPU64)
