@@ -6,7 +6,7 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3, 5-8 and 11-21) runs with the kernel's launch count set to 0
+Each path (3, 5-8 and 11-26) runs with the kernel's launch count set to 0
 just before it and read just after, and fails if the kernel was not
 launched; the operands of every kernel call the covariance module makes on
 these paths are kept for phase 4.
@@ -132,7 +132,43 @@ these paths are kept for phase 4.
 21. ls_time: automatic ls_time on 20,000 cells at d = 2 over ten ragged
    time points: the batched fits in float32 and float64 and the per-time
    loop in float64, batched within LS_TIME_LOOP_REL of the loop, float32
-   within LS_TIME_F32_REL of float64.
+   within LS_TIME_F32_REL of float64;
+22. nystroem: DensityEstimator(gp_type="sparse_nystroem", rank=0.999,
+   n_landmarks=2000) on the cells of benchdata/ref_nystroem_8627x20_f64.npz,
+   certified against its float64 fit (NYSTROEM_CERT_MIN_CORR,
+   NYSTROEM_CERT_MAX_RMSE): the kept landmarks, the rank, the eigensolver
+   (direct or sketch), the warm fit time (median of 3), the gap to a
+   float64 fit on the card, and the predictor at the training points
+   against the float64 fit's (its distance from f printed: the Nyström
+   predictor smooths); then gp_type="full_nystroem" on FULL_CELLS cells,
+   float32 against float64 (DENSITY_FULL_MIN_CORR);
+23. full capacity: config.PRUNE_SINGULAR_LANDMARKS = False at the bench
+   shape (restored after): all 5,000 landmarks kept, L within
+   CAPACITY_L_REL (relative RMS) of a float64 construction from the plain
+   kernel, certified with the main path's bars beside the pruned
+   default's figures; then EXTENDED_PRECISION_WHITEN = False, printed;
+24. atlas: 1M x 50 cells from ATLAS_SEED by bench.make_data's recipe,
+   DensityEstimator(n_landmarks=5000) stage-synchronised (the kNN stage on
+   its own, the kept rank, L's bytes), then precision="bf16" on the same
+   prepared model (both phases' steps), held to the float32 fit (BF16_MIN_CORR,
+   BF16_MAX_RMSE); the 50,000 x 50 subscale float32 fit certified against
+   benchdata/ref_atlas_sub_50000x50_f64.npz with the main path's bars;
+25. dimensionality nuts: DimensionalityEstimator(optimizer="nuts") with
+   DIM_NUTS_OPTIONS: split-R-hat <= NUTS_MAX_RHAT, draws (chains, draws,
+   2, k), finite positive local dimensions, their correlation with the
+   L-BFGS fit of 16 (printed); optimizer="smc" raises ValueError;
+26. checkpoint: the chains of 11 saved and loaded (save_sampler_state,
+   load_sampler_state with the generator's state): CHECKPOINT_DRAWS draws
+   resumed from the loaded checkpoint bit-identical to those resumed from
+   memory, and their predictors at the 1,000 points equal.
+
+Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
+elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
+on 2,000 rows at each end, the plain version timed in row blocks.
+``python3 chip_smoke.py --only label,label`` runs the main path and the
+named paths (with the paths they take results from) and the kernel phase
+on their operands, and prints no result line; the script prints its total
+seconds before the result lines.
 
 The line before the last is the JSON kernel report (``launches``: over
 all paths; ``ms``, ``plain_ms`` and ``bound_ms``: the kernel's, the plain
@@ -272,6 +308,36 @@ LS_TIME_SEED = 10
 # from its float64 truth)
 LS_TIME_LOOP_REL = 1e-3
 LS_TIME_F32_REL = 1e-2
+
+# the paths of the Nyström types, full capacity, the atlas slice, the
+# dimensionality model's NUTS and the sampler checkpoint.  [nystroem] is
+# the BASELINE row (scripts/baseline_matrix.py:59-96): 2,000 landmarks at
+# rank 0.999 on the cells of benchdata/ref_nystroem_8627x20_f64.npz,
+# certified against that file's host-float64 fit (the JAX package read
+# corr 0.999061 / RMSE 0.0132 of the spread on the TPU); [atlas] is
+# configuration 5's single-card slice (scripts/atlas_bench.py:21): 1M x 50
+# cells from ATLAS_SEED by bench.make_data's recipe, 5,000 landmarks, the
+# bf16 MAP held to the float32 one, and the 50,000 x 50 subscale float64
+# reference of scripts/accuracy_cert.py:240-268 held to the main path's
+# bars; the full-capacity L held to a float64 construction of its own
+# (the plain kernel, an unescalated Cholesky, a TRSM), relative RMS
+NYSTROEM_DATA = os.path.join(ROOT, "benchdata", "ref_nystroem_8627x20_f64.npz")
+NYSTROEM = dict(gp_type="sparse_nystroem", rank=0.999, n_landmarks=2000)
+NYSTROEM_CERT_MIN_CORR = 0.998
+NYSTROEM_CERT_MAX_RMSE = 0.02
+FULL_NYSTROEM = dict(gp_type="full_nystroem", rank=0.999)
+CAPACITY_L_REL = 1e-6
+ATLAS_CELLS, ATLAS_DIMS, ATLAS_LANDMARKS, ATLAS_SEED = 1_000_000, 50, 5000, 0
+ATLAS_SUB = os.path.join(ROOT, "benchdata", "ref_atlas_sub_50000x50_f64.npz")
+BF16_MIN_CORR = 0.999
+BF16_MAX_RMSE = 0.02
+# an atlas-shaped kernel call past 2**31 output elements, checked whatever
+# the atlas fit keeps (1M x 2,048 is below 2**31)
+ATLAS_BIG_COLUMNS = 2200
+# the dimensionality model's NUTS at [nuts]'s budget; the checkpoint
+# resumes its chains for CHECKPOINT_DRAWS draws
+DIM_NUTS_OPTIONS = NUTS_OPTIONS
+CHECKPOINT_DRAWS = 10
 
 # H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
 # peak rates outside the tensor cores
@@ -503,8 +569,21 @@ def predict_batch_phase(lib, x, y, ls, launches, dtype_label="float32"):
             raise AssertionError(f"matern52 kernel disagrees at {n}x{m}x{d} {dtype_label}: "
                                  f"{k64} against float64 (bar {bar})")
     del out
-    plain_ms = device_ms(lambda: matern52_gram_reference(x, y, ls),
-                         launches=BIG_PLAIN_LAUNCHES, runs=BIG_PLAIN_RUNS)
+    if n * m <= 2**31:
+        plain_ms = device_ms(lambda: matern52_gram_reference(x, y, ls),
+                             launches=BIG_PLAIN_LAUNCHES, runs=BIG_PLAIN_RUNS)
+    else:
+        # past 2**31 elements the plain version's temporaries would not fit
+        # beside the output: it computes the whole output in row blocks
+        # (columns for a wide output) of at most 2**29 elements each
+        if n >= m:
+            step = max(1, 2**29 // m)
+            blocks = [(x[i:i + step], y) for i in range(0, n, step)]
+        else:
+            step = max(1, 2**29 // n)
+            blocks = [(x, y[i:i + step]) for i in range(0, m, step)]
+        plain_ms = device_ms(lambda: [matern52_gram_reference(a, b, ls) for a, b in blocks],
+                             launches=1, runs=BIG_PLAIN_RUNS)
     bound_ms, bound_by = matern52_bound_ms(n, m, d, dtype_label)
     log(f"[predict batch] {n}x{m}x{d} {dtype_label}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
         f"bound {bound_ms!r} ms ({bound_by}), share {bound_ms / ms!r}; "
@@ -766,7 +845,7 @@ def nuts_path(mt, x_np, x_new, est_map):
           and STD_RATIO[0] <= ratio <= STD_RATIO[1] and corr >= POSTERIOR_MIN_CORR)
     if not ok:
         raise AssertionError(f"NUTS failed its bars: {stats}")
-    return stats
+    return stats, est
 
 
 def precond_path(mt, est_map, x_new):
@@ -1074,7 +1153,7 @@ def dimensionality_path(mt, x_np, x_new):
           and all(corr_optima[k] >= v for k, v in DIMENSIONALITY_OPTIMUM_MIN_CORR.items()))
     if not ok:
         raise AssertionError(f"dimensionality failed its bars: {stats}")
-    return stats
+    return stats, est
 
 
 def density_full_path(mt, x_np, x_new):
@@ -1338,6 +1417,292 @@ def ls_time_path(mt):
     return out
 
 
+def agreement(ld, want):
+    """(corr, RMSE / spread) of a log density against another on the card."""
+    return certificate(ld, want.double().cpu().numpy())
+
+
+def nystroem_path(mt):
+    """The sparse Nyström BASELINE row: a float32 fit certified against
+    the float64 reference, the warm fit time, the float32-vs-float64 gap
+    on the card and the predictor at the training points; then the full
+    Nyström type on FULL_CELLS cells, float32 against float64."""
+    import numpy as np
+    import torch
+
+    from mellon_tpu_torch.ops.linalg import NYSTROEM_DIRECT_EIGH_MAX
+
+    ref = np.load(NYSTROEM_DATA)
+    x_np = np.asarray(ref["x"], dtype=np.float32)
+    ld_ref = np.asarray(ref["log_density"], dtype=np.float64)
+    est = mt.DensityEstimator(device=DEVICE, **NYSTROEM)
+    ld, first_s = synced_seconds(lambda: est.fit_predict(x_np))
+    corr, rmse = certificate(ld, ld_ref)
+    warm = [synced_seconds(lambda: mt.DensityEstimator(device=DEVICE, **NYSTROEM).fit_predict(x_np))[1]
+            for _ in range(3)]
+    est64 = mt.DensityEstimator(device=DEVICE, dtype=torch.float64, **NYSTROEM)
+    ld64, seconds64 = synced_seconds(lambda: est64.fit_predict(x_np))
+    spread = float(ld.max() - ld.min())
+    # the Nyström predictor (LandmarksConditional through the kept
+    # landmarks, y_is_mean) smooths f rather than interpolating it, in the
+    # JAX package too (PERF.md): at the training points it is held to the
+    # float64 fit's predictor, and its distance from f is printed
+    at_train = est.predict(x_np)
+    train_err = float((at_train - ld).abs().max()) / spread
+    train_corr, _ = agreement(at_train, est64.predict(x_np))
+    kept = int(est.landmarks.shape[0])
+    stats = {
+        "landmarks_kept": kept, "rank": int(est.L.shape[1]),
+        "eigensolver": "sketch" if kept > NYSTROEM_DIRECT_EIGH_MAX else "direct",
+        "certificate": {"corr": corr, "rmse": rmse},
+        "first_fit_seconds": first_s, "warm_fit_seconds": warm,
+        "warm_fit_median": statistics.median(warm), "lbfgs_steps": est.opt_state.n_steps,
+        "f64": {"landmarks_kept": int(est64.landmarks.shape[0]), "rank": int(est64.L.shape[1]),
+                "seconds": seconds64, "certificate": certificate(ld64, ld_ref)},
+        "f32_vs_f64": agreement(ld, ld64),
+        "predict_at_training_points": {"max_from_f_over_spread": train_err,
+                                       "corr_f32_f64": train_corr},
+    }
+    full = {}
+    for dtype in (torch.float32, torch.float64):
+        e = mt.DensityEstimator(device=DEVICE, dtype=dtype, **FULL_NYSTROEM)
+        full[dtype] = (e, *synced_seconds(lambda: e.fit_predict(x_np[:FULL_CELLS])))
+    e32, ld32, s32 = full[torch.float32]
+    stats["full_nystroem"] = {"cells": FULL_CELLS, "gp_type": e32.gp_type.value,
+                              "rank": int(e32.L.shape[1]),
+                              "rank_f64": int(full[torch.float64][0].L.shape[1]),
+                              "seconds": s32, "seconds_f64": full[torch.float64][2],
+                              "corr_f32_f64": log_density_corr(ld32, full[torch.float64][1])}
+    log("[nystroem] " + json.dumps(stats))
+    log(f"[nystroem] bars: certificate corr >= {NYSTROEM_CERT_MIN_CORR}, RMSE/spread <= "
+        f"{NYSTROEM_CERT_MAX_RMSE}; predict at the training points, float32 vs float64, corr >= "
+        f"{DENSITY_FULL_MIN_CORR}; full_nystroem float32 vs float64 corr >= {DENSITY_FULL_MIN_CORR}")
+    ok = (finite(ld, ld64, ld32) and est.gp_type.value == "sparse_nystroem"
+          and corr >= NYSTROEM_CERT_MIN_CORR and rmse <= NYSTROEM_CERT_MAX_RMSE
+          and train_corr >= DENSITY_FULL_MIN_CORR and e32.gp_type.value == "full_nystroem"
+          and stats["full_nystroem"]["corr_f32_f64"] >= DENSITY_FULL_MIN_CORR)
+    if not ok:
+        raise AssertionError(f"nystroem failed its bars: {stats}")
+    return stats
+
+
+def float64_whitening(est, x):
+    """L built in float64 on the card independently of the estimator's
+    route: the plain kernel, an unescalated Cholesky of K_uu + jitter·I and
+    a triangular solve."""
+    import torch
+
+    from mellon_tpu_torch.ops.hopper_kernels import matern52_gram_reference
+
+    x64 = torch.as_tensor(x, device=DEVICE, dtype=torch.float64)
+    xu = est.landmarks.double()
+    K = matern52_gram_reference(xu, xu, est.ls)
+    Lp = torch.linalg.cholesky(K + est.jitter * torch.eye(K.shape[0], dtype=K.dtype, device=K.device))
+    return torch.linalg.solve_triangular(Lp.T, matern52_gram_reference(x64, xu, est.ls),
+                                         upper=True, left=False)
+
+
+def relative_rms(got, want):
+    return float(torch_rms(got.double() - want) / torch_rms(want))
+
+
+def torch_rms(t):
+    return t.pow(2).mean().sqrt()
+
+
+def full_capacity_path(mt, x_np, ld_ref, default):
+    """config.PRUNE_SINGULAR_LANDMARKS = False at the bench shape: every
+    landmark kept, L against a float64 construction, the certificate
+    beside the pruned default's; then EXTENDED_PRECISION_WHITEN = False
+    (printed).  Both flags are restored."""
+    from mellon_tpu_torch import config
+
+    flags = (config.PRUNE_SINGULAR_LANDMARKS, config.EXTENDED_PRECISION_WHITEN)
+    stats = {"pruned_default": default}
+    try:
+        config.PRUNE_SINGULAR_LANDMARKS = False
+        for whiten in (True, False):
+            config.EXTENDED_PRECISION_WHITEN = whiten
+            est = mt.DensityEstimator(device=DEVICE)
+            ld, seconds = synced_seconds(lambda: est.fit_predict(x_np))
+            L_ref = float64_whitening(est, x_np)
+            corr, rmse = certificate(ld, ld_ref)
+            stats["float64_whitening" if whiten else "float32_whitening"] = {
+                "landmarks_kept": int(est.landmarks.shape[0]),
+                "float64_factor": est._f64_Lp is not None, "seconds": seconds,
+                "L_relative_rms": relative_rms(est.L, L_ref),
+                "certificate": {"corr": corr, "rmse": rmse}, "finite": finite(ld),
+                "lbfgs_steps": est.opt_state.n_steps,
+            }
+            del est, L_ref
+    finally:
+        config.PRUNE_SINGULAR_LANDMARKS, config.EXTENDED_PRECISION_WHITEN = flags
+    log("[full capacity] " + json.dumps(stats))
+    log(f"[full capacity] bars (float64 whitening): all {ATLAS_LANDMARKS} landmarks kept, L "
+        f"relative RMS <= {CAPACITY_L_REL}, certificate corr >= {CERT_MIN_CORR}, RMSE/spread "
+        f"<= {CERT_MAX_RMSE}")
+    main = stats["float64_whitening"]
+    ok = (main["finite"] and main["float64_factor"] and main["landmarks_kept"] == ATLAS_LANDMARKS
+          and main["L_relative_rms"] <= CAPACITY_L_REL
+          and main["certificate"]["corr"] >= CERT_MIN_CORR
+          and main["certificate"]["rmse"] <= CERT_MAX_RMSE)
+    if not ok:
+        raise AssertionError(f"full capacity failed its bars: {stats}")
+    return stats
+
+
+def atlas_cells(n, d, seed):
+    """bench.make_data's recipe in numpy: 12 centres ~ N(0, 2²), scales
+    0.3 + 0.4·U, per-dimension decay e^(−0.15 j); float32 (n, d)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(12, d)) * 2.0
+    assign = rng.integers(0, 12, n)
+    scales = 0.3 + 0.4 * rng.random((12, 1))
+    x = centers[assign] + scales[assign] * rng.normal(size=(n, d))
+    return (x * np.exp(-0.15 * np.arange(d))[None, :]).astype(np.float32)
+
+
+def atlas_path(mt):
+    """Configuration 5's single-card slice: the stage-synchronised float32
+    fit of the 1M x 50 cells with 5,000 landmarks, the bf16 MAP on the same
+    prepared model held to it, and the 50,000 x 50 subscale float32 fit
+    certified against its float64 reference.  Returns (stats, the atlas
+    cells and landmarks for the kernel phase's 2**31-element check)."""
+    import numpy as np
+    import torch
+
+    from mellon_tpu_torch.models.density import PREPARED_ATTRIBUTES
+
+    x_np, data_s = synced_seconds(lambda: atlas_cells(ATLAS_CELLS, ATLAS_DIMS, ATLAS_SEED))
+    est = mt.DensityEstimator(n_landmarks=ATLAS_LANDMARKS, device=DEVICE)
+    stages = staged_fit(est, x_np, PREPARED_ATTRIBUTES)
+    ld32 = est.log_density_x
+    steps32 = est.opt_state.n_steps
+    lbfgs32 = stages["lbfgs"]
+    est.precision = "bf16"
+    _, lbfgs16 = synced_seconds(est.run_inference)
+    ld16 = est.process_inference(build_predict=False)
+    corr, rmse = agreement(ld16, ld32)
+    L = est.L
+    stats = {
+        "cells": list(x_np.shape), "data_seconds": data_s, "stage_seconds": stages,
+        "prepare_seconds": sum(v for k, v in stages.items() if k in PREPARED_ATTRIBUTES),
+        "process_seconds": stages["log_density_x"] + stages["predictor"],
+        "knn_seconds": stages["nn_distances"], "landmarks_kept": int(est.landmarks.shape[0]),
+        "rank": int(L.shape[1]), "L_bytes": L.numel() * L.element_size(),
+        "lbfgs_f32": {"seconds": lbfgs32, "steps": steps32},
+        "lbfgs_bf16": {"seconds": lbfgs16, "phase_steps": list(est.opt_state.phase_steps),
+                       "evaluations": est.opt_state.n_evals},
+        "bf16_vs_f32": {"corr": corr, "rmse": rmse},
+    }
+    big = (torch.as_tensor(x_np, device=DEVICE), est.landmarks[:ATLAS_BIG_COLUMNS], est.ls)
+    if big[1].shape[0] < ATLAS_BIG_COLUMNS:
+        g = torch.Generator(device=DEVICE).manual_seed(ATLAS_SEED)
+        pick = torch.randperm(x_np.shape[0], device=DEVICE, generator=g)[:ATLAS_BIG_COLUMNS]
+        big = (big[0], big[0][pick], est.ls)
+    del est, L
+    torch.cuda.empty_cache()
+    sub = np.load(ATLAS_SUB)
+    est_sub = mt.DensityEstimator(n_landmarks=ATLAS_LANDMARKS, device=DEVICE)
+    ld_sub, sub_s = synced_seconds(lambda: est_sub.fit_predict(np.asarray(sub["x"], dtype=np.float32)))
+    sub_corr, sub_rmse = certificate(ld_sub, np.asarray(sub["log_density"], dtype=np.float64))
+    stats["subscale"] = {"cells": list(sub["x"].shape), "seconds": sub_s,
+                         "landmarks_kept": int(est_sub.landmarks.shape[0]),
+                         "certificate": {"corr": sub_corr, "rmse": sub_rmse}}
+    log("[atlas] " + json.dumps(stats))
+    log(f"[atlas] bars: bf16 vs float32 corr >= {BF16_MIN_CORR}, RMSE/spread <= {BF16_MAX_RMSE}; "
+        f"subscale certificate corr >= {CERT_MIN_CORR}, RMSE/spread <= {CERT_MAX_RMSE}; finite")
+    ok = (finite(ld32, ld16, ld_sub) and corr >= BF16_MIN_CORR and rmse <= BF16_MAX_RMSE
+          and sub_corr >= CERT_MIN_CORR and sub_rmse <= CERT_MAX_RMSE)
+    if not ok:
+        raise AssertionError(f"atlas failed its bars: {stats}")
+    return stats, big
+
+
+def dimensionality_nuts_path(mt, x_np, est_map):
+    """DimensionalityEstimator(optimizer="nuts") at [nuts]'s budget: split-R-hat,
+    the draws' shape (chains, draws, 2, k), finite local dimensions; their
+    correlation with the L-BFGS fit; optimizer="smc" raises ValueError."""
+    import numpy as np
+
+    from mellon_tpu_torch.inference.diagnostics import split_rhat
+
+    est = mt.DimensionalityEstimator(optimizer="nuts", sampler_options=DIM_NUTS_OPTIONS,
+                                     device=DEVICE)
+    dims, fit_s = synced_seconds(lambda: est.fit_predict(x_np))
+    res = est.mcmc_result
+    chains, draws = res.samples.shape[:2]
+    k = est.L.shape[1]
+    shape = tuple(est.posterior_samples.shape)
+    rhat = float(np.max(split_rhat(res.samples)))
+    try:
+        mt.DimensionalityEstimator(optimizer="smc", device=DEVICE).fit(x_np[:500])
+        smc = "no error"
+    except ValueError as e:
+        smc = str(e)
+    stats = {
+        "fit_seconds": fit_s, "sampling_seconds": est.sampling_time,
+        "posterior_samples": list(shape), "step_size": float(res.step_size),
+        "mean_accept": float(res.accept_prob.mean()), "divergences": int(res.diverging.sum()),
+        "leapfrogs_per_draw": float(res.num_leapfrog.double().mean()),
+        "ess_min": float(est.ess.min()), "ess_per_second": est.ess_per_second, "max_rhat": rhat,
+        "corr_with_lbfgs": {"local_dim_x": log_density_corr(dims, est_map.local_dim_x),
+                            "log_density_x": log_density_corr(est.log_density_x,
+                                                              est_map.log_density_x)},
+        "local_dim_range": [float(dims.min()), float(dims.max())], "smc": smc,
+    }
+    log("[dimensionality nuts] " + json.dumps(stats))
+    log(f"[dimensionality nuts] bars: max split-R-hat <= {NUTS_MAX_RHAT}, draws "
+        f"({chains}, {draws}, 2, {k}), local dimensions finite and positive, smc raises "
+        "ValueError")
+    ok = (finite(dims, res.samples) and float(dims.min()) > 0 and rhat <= NUTS_MAX_RHAT
+          and shape == (chains, draws, 2, k) and "1-d latent vectors" in smc)
+    if not ok:
+        raise AssertionError(f"dimensionality nuts failed its bars: {stats}")
+    return stats
+
+
+def checkpoint_path(mt, est, x_new):
+    """The [nuts] fit's chains through save_sampler_state and
+    load_sampler_state: CHECKPOINT_DRAWS draws resumed from the loaded
+    checkpoint equal, bit for bit, those resumed from the state in memory."""
+    import torch
+
+    from mellon_tpu_torch.inference.mcmc import resume_mcmc
+
+    res = est.mcmc_result
+    potential = est._sampler_potential(est.pre_transformation)
+    z_last = res.samples[:, -1]
+    generator = torch.Generator(device=DEVICE).manual_seed(ATLAS_SEED + 7)
+    path = os.path.join(ROOT, "build", "chip_smoke_checkpoint")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    _, save_s = synced_seconds(lambda: mt.save_sampler_state(
+        path, samples=res.samples, state=z_last, step_size=res.step_size,
+        inv_mass_diag=res.inv_mass_diag, rng_key=generator, metadata={"algorithm": "nuts"}))
+    loaded, load_s = synced_seconds(lambda: mt.load_sampler_state(path, device=DEVICE))
+    nbytes = os.path.getsize(path + ".npz") + os.path.getsize(path + ".json")
+    kw = dict(num_samples=CHECKPOINT_DRAWS, max_tree_depth=10)
+    memory = resume_mcmc(potential, z_last, generator, res.step_size, res.inv_mass_diag, **kw)
+    disk = resume_mcmc(potential, loaded["state"][0], loaded["rng_key"], loaded["step_size"],
+                       loaded["inv_mass_diag"], **kw)
+    identical = bool(torch.equal(memory.samples, disk.samples))
+    # the resumed draws' predictor at the 1,000 points, from each source
+    draws = [r.samples.reshape(-1, r.samples.shape[-1]) for r in (memory, disk)]
+    at = [posterior_predictor(est, z)(x_new) for z in draws]
+    stats = {"bytes": nbytes, "save_seconds": save_s, "load_seconds": load_s,
+             "chains": int(z_last.shape[0]), "resumed_draws": CHECKPOINT_DRAWS,
+             "bit_identical": identical, "predictors_equal": bool(torch.equal(*at)),
+             "finite": finite(memory.samples, *at)}
+    log("[checkpoint] " + json.dumps(stats))
+    log("[checkpoint] bars: draws resumed from the loaded checkpoint bit-identical to those "
+        "resumed from memory")
+    if not (identical and stats["predictors_equal"] and stats["finite"]):
+        raise AssertionError(f"checkpoint failed its bars: {stats}")
+    return stats
+
+
 def wrapper_host_us(calls=1000, turns=4):
     """Host time of one ``matern52_gram`` call (checks, allocation, the
     ctypes call and the launch): a host clock over ``calls`` calls without
@@ -1402,9 +1767,13 @@ def staged_fit(est, x, prepared_attributes):
     return stages
 
 
-def main():
+def main(only=None):
+    """The whole run; ``only`` (a list of path labels) runs the main path
+    and those paths alone, with the kernel phase on their operands, and
+    prints no result line."""
     import torch
 
+    script_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; nothing was run.", file=sys.stderr)
         return 2
@@ -1485,60 +1854,84 @@ def main():
         raise AssertionError(f"predictor disagrees with f at the training points: {train_err}")
     path_launches = {"main": launches}
 
+    default = {"landmarks_kept": n_kept, "certificate": {"corr": corr, "rmse": rmse}}
+    only = set(only or ())
+    # the paths whose results a selected path takes
+    for path, needs in (("dimensionality nuts", "dimensionality"), ("checkpoint", "nuts")):
+        if path in only:
+            only.add(needs)
+
+    def run(label, fn):
+        if only and label not in only:
+            return None
+        result, seconds = synced_seconds(lambda: counted_path(hk, label, fn))
+        result, path_launches[label] = result
+        log(f"[{label}] path seconds {seconds!r}")
+        return result
+
     # 5-8. the paths of the predictor's uncertainty, ADVI, derivatives and
     # JSON, each with its own launch count
-    _, path_launches["uncertainty"] = counted_path(
-        hk, "uncertainty", lambda: uncertainty_path(mt, x_np, x_new, xq, ld_ref))
-    _, path_launches["advi"] = counted_path(hk, "advi", lambda: advi_path(mt, x_np, ld_ref))
-    (X, derivs), path_launches["derivatives"] = counted_path(
-        hk, "derivatives", lambda: derivatives_path(pred, x_new))
-    check_derivatives(pred, X, derivs)
-    _, path_launches["json"] = counted_path(hk, "json", lambda: json_path(mt, pred, x_new))
+    run("uncertainty", lambda: uncertainty_path(mt, x_np, x_new, xq, ld_ref))
+    run("advi", lambda: advi_path(mt, x_np, ld_ref))
+    derivs = run("derivatives", lambda: derivatives_path(pred, x_new))
+    if derivs is not None:
+        check_derivatives(pred, *derivs)
+    run("json", lambda: json_path(mt, pred, x_new))
     # 11-13. the posterior samplers
-    _, path_launches["nuts"] = counted_path(hk, "nuts", lambda: nuts_path(mt, x_np, x_new, est))
-    _, path_launches["nuts precond"] = counted_path(
-        hk, "nuts precond", lambda: precond_path(mt, est, x_new))
-    _, path_launches["smc"] = counted_path(hk, "smc", lambda: smc_path(mt, est, x_new))
+    nuts = run("nuts", lambda: nuts_path(mt, x_np, x_new, est))
+    run("nuts precond", lambda: precond_path(mt, est, x_new))
+    run("smc", lambda: smc_path(mt, est, x_new))
     # 14-17. the FunctionEstimator, the DimensionalityEstimator and the
     # full GP type
     Y = gene_trends(x_np, FUNCTION_OUTPUTS)
-    new_paths = {
-        "function": lambda: function_path(mt, x_np, x_new, Y),
-        "function full": lambda: function_full_path(mt, x_np, x_new, Y),
-        "dimensionality": lambda: dimensionality_path(mt, x_np, x_new),
-        "density full": lambda: density_full_path(mt, x_np, x_new),
-    }
-    for label, run in new_paths.items():
-        (_, path_launches[label]), seconds = synced_seconds(lambda: counted_path(hk, label, run))
-        log(f"[{label}] path seconds {seconds!r}")
+    run("function", lambda: function_path(mt, x_np, x_new, Y))
+    run("function full", lambda: function_full_path(mt, x_np, x_new, Y))
+    dim = run("dimensionality", lambda: dimensionality_path(mt, x_np, x_new))
+    run("density full", lambda: density_full_path(mt, x_np, x_new))
     # 18-21. the time-sensitive density model
-    (time_est, path_launches["time"]), seconds = synced_seconds(
-        lambda: counted_path(hk, "time", lambda: time_path(mt, *load_time_course())))
-    log(f"[time] path seconds {seconds!r}")
-    time_paths = {
-        "time predict": lambda: time_predict_path(mt, time_est),
-        "time matched": lambda: time_matched_path(mt),
-        "ls_time": lambda: ls_time_path(mt),
-    }
-    for label, run in time_paths.items():
-        (_, path_launches[label]), seconds = synced_seconds(lambda: counted_path(hk, label, run))
-        log(f"[{label}] path seconds {seconds!r}")
-        if label == "time predict":
-            del time_est
-            torch.cuda.empty_cache()
+    time_est = run("time", lambda: time_path(mt, *load_time_course()))
+    if time_est is not None:
+        run("time predict", lambda: time_predict_path(mt, time_est))
+    del time_est
+    torch.cuda.empty_cache()
+    run("time matched", lambda: time_matched_path(mt))
+    run("ls_time", lambda: ls_time_path(mt))
+    # 22-26. the Nyström types, full capacity, the atlas slice, the
+    # dimensionality model's NUTS and the sampler checkpoint
+    run("nystroem", lambda: nystroem_path(mt))
+    run("full capacity", lambda: full_capacity_path(mt, x_np, ld_ref, default))
+    atlas = run("atlas", lambda: atlas_path(mt))
+    torch.cuda.empty_cache()
+    if dim is not None:
+        run("dimensionality nuts", lambda: dimensionality_nuts_path(mt, x_np, dim[1]))
+    if nuts is not None:
+        run("checkpoint", lambda: checkpoint_path(mt, nuts[1], x_new))
     stop_recording()
     launches = sum(path_launches.values())
     if len(calls) != launches:
         raise AssertionError(f"{len(calls)} kernel calls were made but {launches} launched")
     log(f"[paths] kernel launches: {json.dumps(path_launches)}")
 
-    # 4. the kernel against its plain version, on the paths' operands
+    # 4. the kernel against its plain version, on the paths' operands, and
+    # at an atlas-shaped call past 2**31 output elements
+    del nuts, dim
+    torch.cuda.empty_cache()
     max_err, rows = kernel_phase(lib, calls)
+    if atlas is not None:
+        xa, ya, ls = atlas[1]
+        del atlas
+        err, row = predict_batch_phase(lib, xa, ya, ls, 0)
+        max_err = max(max_err, err)
+        rows.append(row)
     ms = sum(r["ms"] * r["launches"] for r in rows)
     plain_ms = sum(r["plain_ms"] * r["launches"] for r in rows)
     bound_ms = sum(r["bound_ms"] * r["launches"] for r in rows)
     log(f"[kernel] the paths' {launches} launches: kernel {ms!r} ms, plain "
         f"{plain_ms!r} ms, bound {bound_ms!r} ms, share {bound_ms / ms!r}")
+
+    if only:
+        log(f"[only] ran {sorted(path_launches)}; no result line")
+        return 0
 
     # 9. the wrapper's host time
     host_us = wrapper_host_us()
@@ -1559,6 +1952,7 @@ def main():
     stages = staged_fit(mt.DensityEstimator(device=DEVICE), x_np, PREPARED_ATTRIBUTES)
     log("[fit] stage seconds " + json.dumps({k: round(v, 6) for k, v in stages.items()}))
 
+    log(f"[total] script seconds {time.perf_counter() - script_start!r} (build included)")
     log(json.dumps({"kernels": [{
         "name": "matern52_gram",
         "route": "cuda",
@@ -1580,4 +1974,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--only"]:
+        sys.exit(main(sys.argv[2].split(",")))
     sys.exit(main())

@@ -26,6 +26,23 @@ logger = logging.getLogger("mellon_tpu_torch")
 DEFAULT_DEVICE = "cuda"
 DEFAULT_DTYPE = torch.float32
 
+# float32 landmark-pruning policy, as in the JAX package.  Where the
+# landmark kernel does not factor in float32, the default prunes to the
+# pivoted-Cholesky subset (every O(n·m) stage shrinks).  False keeps every
+# landmark: the kernel is rebuilt in float64 from the landmarks'
+# coordinates and factored once in float64 on the device, Lp its float32
+# cast (full capacity, at the cost of the larger factorization).
+PRUNE_SINGULAR_LANDMARKS = True
+
+# With that float64 factor (PRUNE_SINGULAR_LANDMARKS = False), build the
+# whitening L = k(x, xu) Lp⁻ᵀ in float64 on the device (the kernel's
+# float64 entry and a float64 triangular solve) and cast it to float32:
+# a float32 solve against the near-singular factor amplifies rounding by
+# ~cond(Lp).  The JAX package emulates this in double-single arithmetic;
+# the H100 has native float64.  False: the float32 kernel and solve
+# against the float32 cast.
+EXTENDED_PRECISION_WHITEN = True
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")

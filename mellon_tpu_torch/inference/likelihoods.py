@@ -42,11 +42,14 @@ def poisson_terms(distances):
     """The per-cell, per-rank constants of the k-NN Poisson likelihood:
     ``(ldist, counts, lgamma(counts))`` with ldist = log(sorted distances)
     + log(π)/2 (n, k) and counts 1..k.  The distances are sorted here,
-    once."""
+    once.  bfloat16 distances (the coarse phase of the two-phase bf16
+    MAP) give ldist rounded to bfloat16, as the JAX package computes it
+    from bf16 operands, returned in float32 beside float32 counts."""
     k = distances.shape[1]
-    counts = torch.arange(1, k + 1, dtype=distances.dtype, device=distances.device)
+    dtype = torch.float32 if distances.dtype == torch.bfloat16 else distances.dtype
+    counts = torch.arange(1, k + 1, dtype=dtype, device=distances.device)
     ldist = torch.log(torch.sort(distances, dim=-1).values) + math.log(math.pi) / 2
-    return ldist, counts, torch.lgamma(counts)
+    return ldist.to(dtype), counts, torch.lgamma(counts)
 
 
 def poisson_likelihood(distances):

@@ -25,6 +25,12 @@ log(π)/2), the counts cⱼ = j and pᵢⱼ = bᵢ + dimsᵢ·ℓᵢⱼ − lgam
 does).  With gᵢⱼ = cⱼ − e^{pᵢⱼ} and qᵢⱼ = ℓᵢⱼ − ½ψ(dimsᵢ/2 + 1), the
 gradient is z₀ − Lᵀ(dims·Σⱼ gq) and z₁ − Lᵀ Σⱼ g; these functions take z
 flattened to (2k,), as the optimizers do.
+
+An L stored in bfloat16 (the coarse phase of the two-phase
+``precision="bf16"`` MAP) is read in row blocks of :data:`BF16_CHUNK_ROWS`
+and upcast to the latents' dtype block by block, so the products are IEEE
+float32 of the bf16-rounded values, as the JAX package's promotion of
+bf16 × f32 gives them, without a float32 copy of L.
 """
 
 import math
@@ -40,13 +46,37 @@ from .likelihoods import (
 )
 
 
+# rows of a bfloat16 L upcast at a time
+BF16_CHUNK_ROWS = 65536
+
+
+def _matmul(L, Z):
+    """L @ Z, with a bfloat16 L upcast to Z's dtype in row blocks."""
+    if L.dtype != torch.bfloat16:
+        return L @ Z
+    return torch.cat(
+        [L[i : i + BF16_CHUNK_ROWS].to(Z.dtype) @ Z for i in range(0, L.shape[0], BF16_CHUNK_ROWS)]
+    )
+
+
+def _rmatmul(L, W):
+    """Lᵀ @ W, with a bfloat16 L upcast to W's dtype in row blocks."""
+    if L.dtype != torch.bfloat16:
+        return L.T @ W
+    out = None
+    for i in range(0, L.shape[0], BF16_CHUNK_ROWS):
+        part = L[i : i + BF16_CHUNK_ROWS].to(W.dtype).T @ W[i : i + BF16_CHUNK_ROWS]
+        out = part if out is None else out + part
+    return out
+
+
 def _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term):
     k = z.shape[0]
-    f = L @ z + mu
+    f = _matmul(L, z) + mu
     e = torch.exp(f + V)
     prior = -(1 / 2) * torch.sum(z * z) - (k / 2) * math.log(2 * math.pi)
     likelihood = torch.sum((f + Vdr) - e + loss_offset_per_term)
-    return -(prior + likelihood), z - L.T @ (1 - e)
+    return -(prior + likelihood), z - _rmatmul(L, 1 - e)
 
 
 def density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
@@ -161,8 +191,8 @@ def _dimensionality_terms(Z, L, ldist, counts, lgamma_counts, mu_dim, mu_dens):
     """dims (n, S), p (n, k, S) and e^p at the S columns of the (2k, S)
     flattened latents Z."""
     k = L.shape[1]
-    dims = torch.exp(L @ Z[:k] + mu_dim)
-    log_dens = L @ Z[k:] + mu_dens
+    dims = torch.exp(_matmul(L, Z[:k]) + mu_dim)
+    log_dens = _matmul(L, Z[k:]) + mu_dens
     pred = log_dens[:, None] + dims[:, None] * ldist[..., None] - torch.lgamma(dims / 2 + 1)[:, None]
     return dims, pred, torch.exp(pred)
 
@@ -190,10 +220,46 @@ def make_dimensionality_value_and_grad(L, distances, mu_dim, mu_dens):
         u = g.sum(dim=1)
         psi = torch.digamma(dims[:, 0] / 2 + 1)
         v = torch.sum(g * ldist, dim=1) - 0.5 * psi * u
-        grad = z - torch.cat([L.T @ (v * dims[:, 0]), L.T @ u])
+        grad = z - torch.cat([_rmatmul(L, v * dims[:, 0]), _rmatmul(L, u)])
         return loss[0], grad
 
     return value_and_grad
+
+
+def make_dimensionality_value_and_grad_batch(L, distances, mu_dim, mu_dens, loss_offset_per_cell=0.0):
+    """``Z -> (losses (C,), gradients (C, 2k))`` at the C rows of the
+    flattened latents Z (C, 2k): the samplers' potential, one call per
+    leapfrog for every chain.  ``loss_offset_per_cell`` is added to each
+    cell's log-likelihood inside the sum over cells (the zero-centring of
+    :func:`zero_centered_dimensionality_potential`)."""
+    ldist, counts, lgamma_counts = poisson_terms(distances)
+
+    def value_and_grad(Z):
+        Zt = Z.T
+        dims, pred, E = _dimensionality_terms(Zt, L, ldist, counts, lgamma_counts, mu_dim, mu_dens)
+        per_cell = torch.sum(pred * counts[:, None] - E - lgamma_counts[:, None], dim=1)
+        loss = -(_dimensionality_prior(Zt) + torch.sum(per_cell + loss_offset_per_cell, dim=0))
+        g = counts[:, None] - E
+        u = g.sum(dim=1)
+        psi = torch.digamma(dims / 2 + 1)
+        v = torch.sum(g * ldist[..., None], dim=1) - 0.5 * psi * u
+        grad = Zt - torch.cat([_rmatmul(L, v * dims), _rmatmul(L, u)])
+        return loss, grad.T
+
+    return value_and_grad
+
+
+def zero_centered_dimensionality_potential(z0, L, distances, mu_dim, mu_dens):
+    """The dimensionality potential re-centred to ~0 at the flattened
+    ``z0`` (2k,): the batched ``value_and_grad`` with
+    ``loss_offset_per_cell`` = loss(z0)/n (as a float32 number), and that
+    offset; see :func:`.mcmc.zero_centered_potential`."""
+    import numpy as np
+
+    n = L.shape[0]
+    v0 = float(make_dimensionality_value_and_grad(L, distances, mu_dim, mu_dens)(z0)[0])
+    offset = float(np.float32(v0 / n))
+    return make_dimensionality_value_and_grad_batch(L, distances, mu_dim, mu_dens, offset), offset
 
 
 def make_dimensionality_loss_batch(L, distances, mu_dim, mu_dens):
@@ -234,6 +300,37 @@ def dimensionality_hessian_diagonal(z, L, distances, mu_dim, mu_dens):
         squares = rows * rows
         diag = diag + torch.cat([w0 @ squares, E.sum(dim=1) @ squares])
     return diag
+
+
+def dimensionality_hessian(z, L, distances, mu_dim, mu_dens):
+    """The dimensionality loss's Hessian at the flattened z (2k,), (2k, 2k),
+    in closed form: I + [[Lᵀ W₀₀ L, Lᵀ W₀₁ L], [Lᵀ W₀₁ L, Lᵀ W₁₁ L]] with
+    the per-cell weights W₁₁ = Σⱼ e^p, W₀₁ = dims·Σⱼ e^p q and W₀₀ the
+    dimension row's weight of :func:`dimensionality_hessian_diagonal`,
+    summed over :data:`HESSIAN_CHUNK_ROWS` rows of L at a time."""
+    ldist, counts, lgamma_counts = poisson_terms(distances)
+    k = L.shape[1]
+    H = torch.eye(2 * k, dtype=z.dtype, device=z.device)
+    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
+        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        block = ldist[start : start + HESSIAN_CHUNK_ROWS]
+        dims, _, E = _dimensionality_terms(
+            z[:, None], rows, block, counts, lgamma_counts, mu_dim, mu_dens
+        )
+        dims, E = dims[:, 0], E[..., 0]
+        g = counts - E
+        q = block - 0.5 * torch.digamma(dims / 2 + 1)[:, None]
+        trigamma = torch.special.polygamma(1, dims / 2 + 1)
+        w00 = dims * dims * (torch.sum(E * q * q, dim=1) + 0.25 * trigamma * g.sum(dim=1))
+        w00 = w00 - dims * torch.sum(g * q, dim=1)
+        w01 = dims * torch.sum(E * q, dim=1)
+        w11 = E.sum(dim=1)
+        H[:k, :k] += (rows * w00[:, None]).T @ rows
+        cross = (rows * w01[:, None]).T @ rows
+        H[:k, k:] += cross
+        H[k:, :k] += cross
+        H[k:, k:] += (rows * w11[:, None]).T @ rows
+    return H
 
 
 def dimensionality_loss(z, L, distances, mu_dim, mu_dens):

@@ -50,7 +50,11 @@ ADAM_B2 = 0.999
 ADAM_EPS = 1e-8  # added outside the square root, as optax's eps
 LEARN_RATE_DECAY = 1e-2  # the rate at step i is exp(-0.01 i)·lr0
 
-LBFGSResult = namedtuple("LBFGSResult", "pre_transformation loss n_steps n_evals converged")
+# phase_steps: (bf16 steps, float32 steps) of a two-phase run, else None
+LBFGSResult = namedtuple(
+    "LBFGSResult", "pre_transformation loss n_steps n_evals converged phase_steps",
+    defaults=(None,),
+)
 AdamResult = namedtuple("AdamResult", "pre_transformation opt_state losses")
 AdamState = namedtuple("AdamState", "count mu nu")
 _Trial = namedtuple("_Trial", "step phi dphi gnorm z value grad")
@@ -173,19 +177,70 @@ def _line_search(fun, z, value, grad, direction, phi0):
     return found, dphi0, len(tried)
 
 
+def bf16_operands(loss_args):
+    """The loss operands with every 2-d float32 tensor rounded to
+    bfloat16 (round to nearest even, as XLA's convert)."""
+    return tuple(
+        a.to(torch.bfloat16)
+        if isinstance(a, torch.Tensor) and a.ndim == 2 and a.dtype == torch.float32
+        else a
+        for a in loss_args
+    )
+
+
 def minimize_lbfgs(
     value_and_grad,
     initial_value,
     max_iter=DEFAULT_LBFGS_MAX_ITER,
     tol=DEFAULT_LBFGS_TOL,
     memory_size=DEFAULT_MEMORY_SIZE,
+    precision=None,
+    make_value_and_grad=None,
+    loss_args=(),
 ):
     """Minimize ``value_and_grad(z) -> (loss, grad)`` from ``initial_value``.
 
     Stops once ‖g‖ < tol·max(1, |loss|) (after at least one step), after
     ``max_iter`` steps, or when the line search finds no decrease; the
     result's ``converged`` says whether the first of these held.
+
+    ``precision="bf16"`` runs two phases, as the JAX package does:
+    max(3·max_iter // 4, 1) steps on ``make_value_and_grad(*loss_args)``
+    with every 2-d float32 operand stored as bfloat16 (:func:`bf16_operands`),
+    then max(max_iter − that, 1) steps on ``value_and_grad`` from the first
+    phase's optimum.  Without ``loss_args`` (and a ``make_value_and_grad``
+    to build the loss from them) it runs the single float32 phase.  The
+    result's ``n_steps`` and ``n_evals`` cover both phases.
     """
+    if precision == "bf16" and (make_value_and_grad is None or not loss_args):
+        logger.info(
+            "precision='bf16' has no effect without operand-threaded "
+            "loss_args; running the single-phase f32 solve."
+        )
+        precision = None
+    if precision == "bf16":
+        coarse_iter = max(int(max_iter) * 3 // 4, 1)
+        polish_iter = max(int(max_iter) - coarse_iter, 1)
+        coarse = _lbfgs(make_value_and_grad(*bf16_operands(loss_args)), initial_value,
+                        coarse_iter, tol, memory_size)
+        fine = _lbfgs(value_and_grad, coarse.pre_transformation, polish_iter, tol, memory_size)
+        logger.info(
+            "L-BFGS finished after %d bf16 + %d f32 steps with loss %.6g.",
+            coarse.n_steps,
+            fine.n_steps,
+            fine.loss,
+        )
+        return fine._replace(n_steps=coarse.n_steps + fine.n_steps,
+                             n_evals=coarse.n_evals + fine.n_evals,
+                             phase_steps=(coarse.n_steps, fine.n_steps))
+    if precision is not None and precision != "f32":
+        raise ValueError(f"Unknown precision option: {precision}")
+    result = _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size)
+    logger.info("L-BFGS finished after %d steps with loss %.6g.", result.n_steps, result.loss)
+    return result
+
+
+def _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size):
     fun = value_and_grad
     z = initial_value.clone()
     value, grad = fun(z)
@@ -226,7 +281,6 @@ def minimize_lbfgs(
         gamma = torch.where((sy > 0) & (yy > 0), sy / yy, torch.ones_like(sy))
         z, value, grad, phi, gnorm = trial.z, trial.value, trial.grad, trial.phi, trial.gnorm
         count += 1
-    logger.info("L-BFGS finished after %d steps with loss %.6g.", count, phi)
     return LBFGSResult(z, phi, count, n_evals, gnorm < tol * max(1.0, abs(phi)))
 
 

@@ -30,7 +30,14 @@ import torch
 
 from ..config import resolve_device_dtype
 from ..ops.kernels import FOREIGN_PACKAGES, Covariance
-from ..utils.util import deserialize, ensure_2d, make_multi_time_argument, make_serializable
+from ..utils.util import (
+    deserialize,
+    ensure_2d,
+    make_multi_time_argument,
+    make_serializable,
+    object_html,
+    object_str,
+)
 from ..utils.validation import validate_array, validate_bool, validate_time_x
 from .derivatives import gradient, hessian, hessian_log_determinant
 
@@ -126,11 +133,32 @@ class Predictor(ABC):
     def dtype(self):
         ...
 
+    def __str__(self):
+        return self.__repr__()
+
     def __repr__(self):
+        n_obs = "None" if self.n_obs is None else f"{self.n_obs:,}"
         return (
             f'A predictor of class "{self.__class__.__name__}" with covariance '
-            f'function "{self.cov_func!r}" trained on {self.n_obs} observations '
-            f"with {self.n_input_features:,} features."
+            f'function "{self.cov_func!r}" trained on {n_obs} observations '
+            f"with {self.n_input_features:,} features and data:\n"
+            + "\n".join(f"{key}: {object_str(v)}" for key, v in self._data_dict().items())
+        )
+
+    def _repr_html_(self):
+        n_obs = "None" if self.n_obs is None else f"{self.n_obs:,}"
+        rows = "".join(
+            f"<tr><td>{key}</td><td>{object_html(value)}</td></tr>"
+            for key, value in self._data_dict().items()
+        )
+        return (
+            f"<h2>Predictor Object: {self.__class__.__name__}</h2>"
+            f"<p><strong>Covariance Function:</strong> {object_html(repr(self.cov_func))}</p>"
+            f"<p><strong>Trained on:</strong> {n_obs} observations</p>"
+            f"<p><strong>Number of Features:</strong> {self.n_input_features:,}</p>"
+            "<h3>Data Attributes</h3>"
+            '<table style="border: 1px solid black; border-collapse: collapse;">'
+            f"<tr><th>Attribute</th><th>Value</th></tr>{rows}</table>"
         )
 
     def _validate(self, x):

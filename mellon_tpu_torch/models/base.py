@@ -1,12 +1,22 @@
 """Shared estimator machinery: validated constructor, lazy attribute
-preparation, the landmark factorization with f32 pruning, and the
-optimizer dispatch (counterpart of ``mellon_tpu/models/base.py``).
+preparation, the landmark factorization with its float32 policies, and
+the optimizer dispatch (counterpart of ``mellon_tpu/models/base.py``).
 
 The optimizers and the Laplace step see the latents flattened: the
 estimator provides ``_value_and_grad``, ``_loss_batch`` and
-``_hessian_diagonal`` on the flattened vector, and the fitted latents
-take the initial value's shape again ((k,) for the density, (2, k) for
-the dimensionality model).
+``_hessian_diagonal`` on the flattened vector (and, for the two-phase
+``precision="bf16"`` MAP, ``_make_value_and_grad`` with ``_loss_args``;
+for NUTS, ``_sampler_potential`` and ``_sampler_hessian``), and the
+fitted latents take the initial value's shape again ((k,) for the
+density, (2, k) for the dimensionality model).
+
+A float32 landmark kernel that does not factor is pruned to its
+pivoted-Cholesky subset, or, with ``config.PRUNE_SINGULAR_LANDMARKS``
+off, kept whole with a float64 factor (and, with
+``config.EXTENDED_PRECISION_WHITEN``, L built in float64).  The sparse
+Nyström type above :data:`..ops.linalg.NYSTROEM_EXACT_MAX` landmarks
+prunes the same way before its whitened eigensolver, as the JAX
+package's fused Nyström prepare does.
 
 Every tensor of an estimator lives on its ``device`` in its ``dtype``
 (``cuda`` and float32 unless asked otherwise).
@@ -19,24 +29,21 @@ import time
 import numpy as np
 import torch
 
+from .. import config
 from ..config import resolve_device_dtype
 from ..inference.advi import run_advi
 from ..inference.conditionals import _landmarks_lp_with_pruning
 from ..inference.diagnostics import effective_sample_size
 from ..inference.laplace import compute_laplace_std
-from ..inference.losses import (
-    density_hessian,
-    make_density_loglik_batch,
-    make_density_value_and_grad_batch,
-)
+from ..inference.losses import make_density_loglik_batch, make_density_value_and_grad_batch
 from ..inference.mcmc import (
+    BF16_SAMPLING,
     hessian_cholesky,
     newton_polish,
     precondition_transform,
     preconditioned_potential,
     run_mcmc,
     unwhiten_samples,
-    zero_centered_potential,
 )
 from ..inference.optimizers import (
     DEFAULT_INIT_LEARN_RATE,
@@ -47,9 +54,16 @@ from ..inference.optimizers import (
 )
 from ..inference.smc import laplace_start, run_smc
 from ..ops.kernels import Matern52
+from ..ops.linalg import (
+    NYSTROEM_EXACT_MAX,
+    _cholesky_f64_rescue,
+    _jittered_cholesky,
+    _nystroem_select_and_project,
+    _standard_low_rank,
+    safe_cholesky,
+)
 from ..parameters import (
     DEFAULT_RANDOM_SEED,
-    _require_ported_gp_type,
     compute_cov_func,
     compute_gp_type,
     compute_L,
@@ -83,6 +97,7 @@ RANK_FRACTION_THRESHOLD = 0.8
 SAMPLE_LANDMARK_RATIO = 10
 
 OPTIMIZERS = ("adam", "advi", "L-BFGS-B", "nuts", "smc")
+PRECISIONS = (None, "f32", "bf16")
 
 # ``sampler_options=`` keys of optimizer="nuts" and optimizer="smc", as in
 # the JAX package.  "steps_per_call" bounds one compiled XLA program's run
@@ -198,10 +213,19 @@ class BaseEstimator:
         jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
+        precision=None,
         sampler_options=None,
         device=None,
         dtype=None,
     ):
+        if precision not in PRECISIONS:
+            raise ValueError(
+                f"Unknown precision option: {precision!r}. "
+                'Available options are "bf16", "f32" and None.'
+            )
+        if precision == "bf16" and optimizer in ("nuts", "smc"):
+            raise NotImplementedError(BF16_SAMPLING)
+        self.precision = precision
         self.device, self.dtype = resolve_device_dtype(device, dtype)
         self.optimizer = validate_string(optimizer, "optimizer", choices=set(OPTIMIZERS))
         self.n_iter = validate_positive_int(n_iter, "n_iter")
@@ -236,6 +260,8 @@ class BaseEstimator:
         self.sampler_options = _validate_sampler_options(sampler_options)
         self.x = None
         self.pre_transformation = None
+        # the float64 landmark factor of a full-capacity fit
+        self._f64_Lp = None
 
     def __repr__(self):
         return (
@@ -309,46 +335,126 @@ class BaseEstimator:
         logger.info("Using covariance function %s.", str(cov_func))
         return cov_func
 
+    def _lp_accept_or_prune(self, K, L, ok):
+        """The float32 landmark factor after the Cholesky attempt (L, ok)
+        of K: L itself where it factored; else, by default, the
+        pivoted-Cholesky subset of the landmarks and its factor; with
+        ``config.PRUNE_SINGULAR_LANDMARKS`` off, every landmark with a
+        float64 factor of the kernel rebuilt in float64 from their
+        coordinates (kept for :meth:`_compute_L`; Lp is its float32 cast),
+        or, where even that fails, the escalated float32 factor."""
+        if bool(ok):
+            return L
+        if not config.PRUNE_SINGULAR_LANDMARKS:
+            logger.warning(
+                "Landmark kernel is singular at f32; keeping all %d "
+                "landmarks (pruning disabled) and factorizing once in float64.",
+                self.landmarks.shape[0],
+            )
+            xu = self.landmarks.double()
+            K64 = K.double() if self.cov_func is None else self.cov_func(xu, xu)
+            L64 = _cholesky_f64_rescue(K64, self.jitter)
+            if L64 is None:
+                return safe_cholesky(K, jitter=self.jitter, max_tries=3)
+            self._f64_Lp = L64
+            return L64.to(K.dtype)
+        landmarks, Lp = _landmarks_lp_with_pruning(
+            self.landmarks, self.cov_func, self.jitter, K=K, known_singular=True
+        )
+        self._set_pruned_landmarks(landmarks)
+        return Lp
+
+    def _set_pruned_landmarks(self, landmarks):
+        if landmarks is self.landmarks:
+            return
+        self.landmarks = landmarks
+        self.n_landmarks = int(landmarks.shape[0])
+        if self.check_rank is None:
+            # rank is known by construction; skip the SVD check
+            self.check_rank = False
+
     def _compute_Lp(self):
-        # float32 sparse case: when the landmark kernel is singular at f32,
-        # prune to the pivoted-Cholesky subset, as the landmarks conditional
-        # does.  (Keeping every landmark with a float64 factor is the JAX
-        # package's opt-out PRUNE_SINGULAR_LANDMARKS = False; not ported.)
+        # float32 sparse case: accept, prune or keep every landmark in
+        # float64 (_lp_accept_or_prune)
         if (
             self.landmarks is not None
             and self.gp_type
             in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED)
             and self.dtype != torch.float64
         ):
-            landmarks, Lp = _landmarks_lp_with_pruning(self.landmarks, self.cov_func, self.jitter)
-            if landmarks is not self.landmarks:
-                self.landmarks = landmarks
-                self.n_landmarks = int(landmarks.shape[0])
-                if self.check_rank is None:
-                    # rank is known by construction; skip the SVD check
-                    self.check_rank = False
-            return Lp
+            K = self.cov_func(self.landmarks, self.landmarks)
+            L, ok = _jittered_cholesky(K, self.jitter)
+            return self._lp_accept_or_prune(K, L, ok)
         return compute_Lp(
             self.x, self.cov_func, self.gp_type, self.landmarks, sigma=0, jitter=self.jitter
         )
 
-    def _compute_L(self):
-        L = compute_L(
-            self.x,
-            self.cov_func,
-            self.gp_type,
-            landmarks=self.landmarks,
-            Lp=self.Lp,
-            rank=self.rank,
-            sigma=0,
-            jitter=self.jitter,
+    def _whiten_f64(self):
+        """L = k(x, xu) Lp⁻ᵀ in float64 against the float64 landmark factor
+        (the kernel tile's float64 entry, a float64 triangular solve), cast
+        to the estimator's dtype."""
+        logger.info(
+            "Whitening %s cells against the float64 landmark factor in float64.",
+            f"{self.x.shape[0]:,}",
         )
+        L = _standard_low_rank(
+            self.x.double(), self.cov_func, self.landmarks.double(), Lp=self._f64_Lp
+        )
+        return L.to(self.dtype)
+
+    def _nystroem_L(self):
+        """The sparse Nyström L above NYSTROEM_EXACT_MAX landmarks: the
+        landmark factor (at float32 pruned to the pivoted-Cholesky subset
+        where the kernel does not factor), H = k(x, xu) Lp⁻ᵀ and the mass
+        selection on HᵀH; Lp itself is not kept (the predictor builds
+        its own)."""
+        landmarks, Lp = _landmarks_lp_with_pruning(self.landmarks, self.cov_func, self.jitter)
+        self._set_pruned_landmarks(landmarks)
+        H = _standard_low_rank(self.x, self.cov_func, landmarks, Lp=Lp)
+        return _nystroem_select_and_project(H, self.rank)
+
+    def _compute_L(self):
         n_samples = self.x.shape[0]
+        gp_type = self.gp_type
+        if (
+            self._f64_Lp is not None
+            and config.EXTENDED_PRECISION_WHITEN
+            and self.landmarks is not None
+            and gp_type in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED)
+        ):
+            L = self._whiten_f64()
+        elif (
+            gp_type == GaussianProcessType.SPARSE_NYSTROEM
+            and self.landmarks is not None
+            and NYSTROEM_EXACT_MAX < self.landmarks.shape[0] < n_samples
+        ):
+            L = self._nystroem_L()
+        else:
+            L = compute_L(
+                self.x,
+                self.cov_func,
+                gp_type,
+                landmarks=self.landmarks,
+                Lp=self.Lp,
+                rank=self.rank,
+                sigma=0,
+                jitter=self.jitter,
+            )
+        new_rank = L.shape[1]
         n_landmarks = n_samples if self.landmarks is None else self.landmarks.shape[0]
+        if gp_type in (
+            GaussianProcessType.SPARSE_NYSTROEM,
+            GaussianProcessType.FULL_NYSTROEM,
+        ) and new_rank > (self.rank * RANK_FRACTION_THRESHOLD * n_landmarks):
+            logger.warning(
+                f"Shallow rank reduction from {n_landmarks:,} to {new_rank:,} "
+                "indicates underrepresentation by landmarks. Consider "
+                "increasing n_landmarks!"
+            )
         check_rank = self.check_rank
         if (
             check_rank is None
-            and self.gp_type == GaussianProcessType.SPARSE_CHOLESKY
+            and gp_type == GaussianProcessType.SPARSE_CHOLESKY
             and SAMPLE_LANDMARK_RATIO * n_landmarks < n_samples
         ) or bool(check_rank):
             logger.info(
@@ -357,16 +463,14 @@ class BaseEstimator:
                 f"{SAMPLE_LANDMARK_RATIO} x {n_landmarks:,} landmarks."
             )
             test_rank(L, threshold=RANK_FRACTION_THRESHOLD)
-        logger.info(f"Using rank {L.shape[1]:,} covariance representation.")
+        logger.info(f"Using rank {new_rank:,} covariance representation.")
         return L
 
     def validate_parameter(self):
-        """Cross-check the parameter combination; refuse GP types that are
-        not ported yet."""
+        """Cross-check the parameter combination."""
         validate_params(
             self.rank, self.gp_type, self.x.shape[0], self.n_landmarks, self.landmarks
         )
-        _require_ported_gp_type(self.gp_type)
 
     def _run_inference(self):
         """Fit the latents with the estimator's optimizer; with
@@ -405,7 +509,13 @@ class BaseEstimator:
         elif optimizer == "smc":
             self._run_smc()
         else:
-            results = minimize_lbfgs(self._value_and_grad, z0)
+            results = minimize_lbfgs(
+                self._value_and_grad,
+                z0,
+                precision=self.precision,
+                make_value_and_grad=getattr(self, "_make_value_and_grad", None),
+                loss_args=getattr(self, "_loss_args", ()),
+            )
             self.pre_transformation = results.pre_transformation.reshape(shape)
             self.losses = [results.loss]
             self.opt_state = results
@@ -420,17 +530,20 @@ class BaseEstimator:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _run_nuts(self):
-        """The full posterior by NUTS; the draws' mean and std (ddof 0)
-        become the latents and their stds.
+        """The full posterior by NUTS over the flattened latents; the
+        draws' mean and std (ddof 0) become the latents and their stds,
+        in the initial value's shape, and ``posterior_samples`` is
+        (chains, draws, *that shape).
 
         The chains start at the L-BFGS MAP, where the potential is
-        zero-centred, as ``sample_density_posterior`` does for a fitted
-        estimator.  The JAX package's estimator path starts them at the
-        warm start and does not centre (ROADMAP Queue 3): there the loss
-        is ~1e7 at the bench shape against ~4e4 at the MAP, and centring
-        at the warm start would leave the posterior's potential at ~1e7,
-        whose float32 rounding froze NUTS on the H100 (step size 1e-5,
-        every tree at the depth cap)."""
+        zero-centred (the estimator's ``_sampler_potential``), as
+        ``sample_density_posterior`` does for a fitted estimator.  The JAX
+        package's estimator path starts them at the warm start and does
+        not centre (ROADMAP Queue 3): there the loss is ~1e7 at the bench
+        shape against ~4e4 at the MAP, and centring at the warm start
+        would leave the posterior's potential at ~1e7, whose float32
+        rounding froze NUTS on the H100 (step size 1e-5, every tree at the
+        depth cap)."""
         opts = {
             "num_warmup": max(self.n_iter, 200),
             "num_samples": max(self.n_iter, 200),
@@ -441,12 +554,12 @@ class BaseEstimator:
         }
         opts.update({k: v for k, v in self.sampler_options.items() if k in _NUTS_OPTION_KEYS})
         precondition = opts.pop("precondition", None)
-        z0 = minimize_lbfgs(self._value_and_grad, self.initial_value).pre_transformation
-        potential, _ = zero_centered_potential(z0, *self._loss_args)
+        shape = self.initial_value.shape
+        z0 = minimize_lbfgs(self._value_and_grad, self.initial_value.reshape(-1)).pre_transformation
+        potential = self._sampler_potential(z0)
         if precondition == "hessian":
-            hessian = lambda z: density_hessian(z, *self._loss_args)  # noqa: E731
-            z_map, _, _ = newton_polish(potential, hessian, z0)
-            T = precondition_transform(hessian_cholesky(hessian(z_map), self.jitter))
+            z_map, _, _ = newton_polish(potential, self._sampler_hessian, z0)
+            T = precondition_transform(hessian_cholesky(self._sampler_hessian(z_map), self.jitter))
             potential = preconditioned_potential(potential, T, z_map)
             z0 = torch.zeros_like(z_map)
         for key in ("num_warmup", "num_samples", "num_chains", "max_tree_depth"):
@@ -459,9 +572,12 @@ class BaseEstimator:
         if precondition == "hessian":
             result = result._replace(samples=unwhiten_samples(result.samples, T, z_map))
         flat = result.samples.reshape(-1, result.samples.shape[-1])
-        self.pre_transformation = flat.mean(dim=0)
-        self.pre_transformation_std = flat.std(dim=0, correction=0)
-        self.posterior_samples = result.samples
+        self.pre_transformation = flat.mean(dim=0).reshape(shape)
+        self.pre_transformation_std = flat.std(dim=0, correction=0).reshape(shape)
+        self.posterior_samples = (
+            result.samples if len(shape) == 1
+            else result.samples.reshape(result.samples.shape[:2] + shape)
+        )
         self.mcmc_result = result
         self.losses = result.potential.reshape(-1)
         # the north-star throughput metric: effective samples per second
@@ -479,6 +595,8 @@ class BaseEstimator:
         "laplace"``, from the diagonal Laplace Gaussian at the L-BFGS MAP);
         the particles' mean and std (ddof 0) become the latents and their
         stds."""
+        if self.initial_value.ndim != 1:
+            raise ValueError("optimizer='smc' currently supports 1-d latent vectors.")
         opts = {"num_particles": 1024}
         opts.update({k: v for k, v in self.sampler_options.items() if k in _SMC_OPTION_KEYS})
         for key in _INT_SAMPLER_OPTION_KEYS & set(opts):

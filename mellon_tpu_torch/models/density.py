@@ -19,11 +19,12 @@ from ..inference.losses import (
     compute_log_density_x,
     compute_loss_func,
     compute_transform,
+    density_hessian,
     density_hessian_diagonal,
     make_density_loss_batch,
     make_density_value_and_grad,
 )
-from ..inference.mcmc import BF16_SAMPLING
+from ..inference.mcmc import zero_centered_potential
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..parameters import (
     DEFAULT_RANDOM_SEED,
@@ -32,7 +33,7 @@ from ..parameters import (
     compute_initial_value,
     compute_mu,
 )
-from ..utils.util import DEFAULT_JITTER
+from ..utils.util import DEFAULT_JITTER, object_html
 from ..utils.validation import validate_array, validate_string
 from .base import DEFAULT_COV_FUNC, BaseEstimator
 
@@ -65,7 +66,9 @@ class DensityEstimator(BaseEstimator):
     ``device`` (default ``"cuda"``) and ``dtype`` (default
     ``torch.float32``).  ``landmarks=`` fixes the landmarks instead of
     drawing them by k-means.  ``jit`` is accepted and ignored, and so is
-    ``sampler_options["steps_per_call"]``.  ``optimizer="nuts"`` or
+    ``sampler_options["steps_per_call"]``.  ``precision="bf16"`` runs the
+    two-phase L-BFGS MAP (3/4 of the steps with L stored in bfloat16, then
+    float32); bf16 sampling raises.  ``optimizer="nuts"`` or
     ``"smc"`` keeps the posterior draws (``posterior_samples``,
     ``mcmc_result`` or ``smc_result``; NUTS also ``sampling_time``,
     ``ess`` and ``ess_per_second``), seeded from ``random_state``.
@@ -101,13 +104,6 @@ class DensityEstimator(BaseEstimator):
         device=None,
         dtype=None,
     ):
-        if precision == "bf16" and optimizer in ("nuts", "smc"):
-            raise NotImplementedError(BF16_SAMPLING)
-        if precision not in (None, "f32"):
-            raise NotImplementedError(
-                f"precision={precision!r} is not ported to mellon_tpu_torch yet "
-                "(ROADMAP Queue 1, item 7: the two-phase bf16 MAP)."
-            )
         super().__init__(
             cov_func_curry=cov_func_curry,
             n_landmarks=n_landmarks,
@@ -131,6 +127,7 @@ class DensityEstimator(BaseEstimator):
             jit=jit,
             check_rank=check_rank,
             random_state=random_state,
+            precision=precision,
             sampler_options=sampler_options,
             device=device,
             dtype=dtype,
@@ -150,6 +147,24 @@ class DensityEstimator(BaseEstimator):
         self.pre_transformation_std = None
         self.log_density_x = None
         self.log_density_func = None
+
+    def _repr_html_(self):
+        status = (
+            "<p style='color:green;'><strong>Predictor:</strong> Available</p>"
+            if self.log_density_func
+            else "<p style='color:red;'><strong>Predictor:</strong> Not Yet Computed</p>"
+        )
+        return (
+            "<h2>Density Estimator</h2><p><em>A non-parametric density estimation "
+            "model using Gaussian Processes and Nearest Neighbor Distance "
+            "Distribution.</em></p><h3>Core Attributes</h3><ul>"
+            f"<li><strong>Covariance Function:</strong> {object_html(self.cov_func or 'Not Set')}</li>"
+            f"<li><strong>Optimizer:</strong> {object_html(self.optimizer)}</li>"
+            f"<li><strong>Number of Landmarks:</strong> {object_html(self.n_landmarks or 'Not Set')}</li>"
+            f"<li><strong>Gaussian Process Type:</strong> {object_html(self.gp_type or 'Not Set')}</li>"
+            f"<li><strong>Dimensionality Method:</strong> {object_html(self.d_method)}</li>"
+            "</ul>" + status
+        )
 
     def _states(self):
         """The training cells' state coordinates."""
@@ -195,9 +210,12 @@ class DensityEstimator(BaseEstimator):
         # the forms the optimizers and the Laplace approximation take
         args = (self.L, self.nn_distances, self.d, self.mu)
         self._loss_args = args
+        self._make_value_and_grad = make_density_value_and_grad
         self._value_and_grad = make_density_value_and_grad(*args)
         self._loss_batch = make_density_loss_batch(*args)
         self._hessian_diagonal = lambda z: density_hessian_diagonal(z, *args)
+        self._sampler_potential = lambda z0: zero_centered_potential(z0, *args)[0]
+        self._sampler_hessian = lambda z: density_hessian(z, *args)
         return compute_loss_func(
             self.nn_distances, self.d, self.transform, self.initial_value.shape[0]
         )

@@ -17,9 +17,11 @@ from ..inference.losses import (
     compute_dimensionality_loss_func,
     compute_dimensionality_transform,
     compute_log_density_x,
+    dimensionality_hessian,
     dimensionality_hessian_diagonal,
     make_dimensionality_loss_batch,
     make_dimensionality_value_and_grad,
+    zero_centered_dimensionality_potential,
 )
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..ops.neighbors import local_dimensionality
@@ -29,7 +31,7 @@ from ..parameters import (
     compute_initial_dimensionalities,
     compute_mu,
 )
-from ..utils.util import DEFAULT_JITTER, object_str
+from ..utils.util import DEFAULT_JITTER, object_html, object_str
 from ..utils.validation import validate_array, validate_float, validate_positive_int
 from .base import DEFAULT_COV_FUNC, BaseEstimator
 
@@ -50,25 +52,17 @@ PREPARED_ATTRIBUTES = (
     "transform",
     "loss_func",
 )
-_SAMPLERS_NOT_PORTED = (
-    "optimizer={!r} is not ported for the DimensionalityEstimator's (2, k) "
-    "latents yet (ROADMAP Queue 1, item 18: samplers on the dimensionality "
-    "model); use L-BFGS-B, adam or advi."
-)
-
-
-def _refuse_samplers(optimizer):
-    if optimizer in ("nuts", "smc"):
-        raise NotImplementedError(_SAMPLERS_NOT_PORTED.format(optimizer))
-
-
 class DimensionalityEstimator(BaseEstimator):
     """Local fractal dimension and log density, jointly.
 
     Takes the arguments of ``mellon_tpu.DimensionalityEstimator``, plus
     ``device`` (default ``"cuda"``) and ``dtype`` (default
-    ``torch.float32``).  ``optimizer`` is L-BFGS-B (the default), adam or
-    advi; ``jit`` is accepted and ignored.
+    ``torch.float32``), and ``precision`` (``"bf16"``: the two-phase
+    L-BFGS MAP).  ``optimizer`` is L-BFGS-B (the default), adam, advi or
+    nuts, which samples the flattened (2, k) latents from the L-BFGS MAP
+    (``posterior_samples`` is (chains, draws, 2, k)); smc raises, as in
+    the JAX package, since it samples 1-d latents only.  ``jit`` is
+    accepted and ignored.
     """
 
     def __init__(
@@ -97,11 +91,11 @@ class DimensionalityEstimator(BaseEstimator):
         jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
+        precision=None,
         sampler_options=None,
         device=None,
         dtype=None,
     ):
-        _refuse_samplers(optimizer)
         super().__init__(
             cov_func_curry=cov_func_curry,
             n_landmarks=n_landmarks,
@@ -125,6 +119,7 @@ class DimensionalityEstimator(BaseEstimator):
             jit=jit,
             check_rank=check_rank,
             random_state=random_state,
+            precision=precision,
             sampler_options=sampler_options,
             device=device,
             dtype=dtype,
@@ -165,6 +160,24 @@ class DimensionalityEstimator(BaseEstimator):
             "\n)"
         )
 
+    def _repr_html_(self):
+        status = (
+            "<p style='color:green;'><strong>Predictors:</strong> Available</p>"
+            if self.local_dim_func and self.log_density_func
+            else "<p style='color:red;'><strong>Predictors:</strong> Not Yet Computed</p>"
+        )
+        return (
+            f"<h2>Dimensionality Estimator: {self.__class__.__name__}</h2>"
+            "<p><em>A non-parametric method for estimating local dimensionality "
+            "and density using Gaussian Processes.</em></p><ul>"
+            f"<li><strong>Covariance Function:</strong> {object_html(self.cov_func or 'Not Set')}</li>"
+            f"<li><strong>Optimizer:</strong> {object_html(self.optimizer)}</li>"
+            f"<li><strong>Number of Landmarks:</strong> {object_html(self.n_landmarks or 'Not Set')}</li>"
+            f"<li><strong>Gaussian Process Type:</strong> {object_html(self.gp_type or 'Not Set')}</li>"
+            f"<li><strong>k (nearest neighbors):</strong> {object_html(self.k)}</li>"
+            "</ul>" + status
+        )
+
     def _compute_mu_dens(self):
         return compute_mu(self.nn_distances, self.d)
 
@@ -191,9 +204,12 @@ class DimensionalityEstimator(BaseEstimator):
         # the flattened forms the optimizers and the Laplace step take
         args = (self.L, self.distances, self.mu_dim, self.mu_dens)
         self._loss_args = args
+        self._make_value_and_grad = make_dimensionality_value_and_grad
         self._value_and_grad = make_dimensionality_value_and_grad(*args)
         self._loss_batch = make_dimensionality_loss_batch(*args)
         self._hessian_diagonal = lambda z: dimensionality_hessian_diagonal(z, *args)
+        self._sampler_potential = lambda z0: zero_centered_dimensionality_potential(z0, *args)[0]
+        self._sampler_hessian = lambda z: dimensionality_hessian(z, *args)
         return compute_dimensionality_loss_func(
             self.distances, self.transform, self.initial_value.shape[0]
         )
@@ -265,7 +281,6 @@ class DimensionalityEstimator(BaseEstimator):
                 initial_value, "initial_value", dtype=self.dtype, device=self.device
             )
         if optimizer is not None:
-            _refuse_samplers(optimizer)
             self.optimizer = optimizer
         self._run_inference()
         return self.pre_transformation

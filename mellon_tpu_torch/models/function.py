@@ -20,7 +20,7 @@ import torch
 from ..inference.factories import compute_conditional
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..parameters import DEFAULT_RANDOM_SEED
-from ..utils.util import DEFAULT_JITTER, GaussianProcessType, object_str
+from ..utils.util import DEFAULT_JITTER, GaussianProcessType, object_html, object_str
 from ..utils.validation import (
     validate_array,
     validate_bool,
@@ -122,6 +122,24 @@ class FunctionEstimator(BaseEstimator):
             f"\n    sigma={object_str(self.sigma)},"
             f"\n    y_is_mean={self.y_is_mean},"
             "\n)"
+        )
+
+    def _repr_html_(self):
+        status = (
+            "<p style='color:green;'><strong>Predictor:</strong> Available</p>"
+            if getattr(self, "conditional", None)
+            else "<p style='color:red;'><strong>Predictor:</strong> Not Yet Computed</p>"
+        )
+        return (
+            "<h2>Function Estimator</h2><p><em>Conditional-mean smoothing of "
+            "observed function values over cell states using a Gaussian "
+            "Process.</em></p><h3>Core Attributes</h3><ul>"
+            f"<li><strong>Covariance Function:</strong> {object_html(self.cov_func or 'Not Set')}</li>"
+            f"<li><strong>Number of Landmarks:</strong> {object_html(self.n_landmarks or 'Not Set')}</li>"
+            f"<li><strong>Gaussian Process Type:</strong> {object_html(self.gp_type or 'Not Set')}</li>"
+            f"<li><strong>Noise Standard Deviation (σ):</strong> {object_html(self.sigma)}</li>"
+            "<li><strong>Predictor with Uncertainty:</strong> "
+            f"{'Yes' if self.predictor_with_uncertainty else 'No'}</li></ul>" + status
         )
 
     def prepare_inference(self, x):

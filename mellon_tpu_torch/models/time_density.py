@@ -90,6 +90,7 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
         jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
+        precision=None,
         sampler_options=None,
         device=None,
         dtype=None,
@@ -118,6 +119,7 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
             jit=jit,
             check_rank=check_rank,
             random_state=random_state,
+            precision=precision,
             sampler_options=sampler_options,
             device=device,
             dtype=dtype,

@@ -1,12 +1,17 @@
-"""Covariance factorizations of the sparse-Cholesky path.
+"""Covariance factorizations (counterpart of ``mellon_tpu/ops/linalg.py``).
 
-Counterpart of the main-path subset of ``mellon_tpu/ops/linalg.py``:
-jittered Cholesky with a validity flag, the f32 rescue ladder, the pivoted
+Jittered Cholesky with a validity flag, the f32 rescue ladder, the pivoted
 partial Cholesky that prunes f32-singular landmark sets, the whitening
-L = C Lp⁻ᵀ and the ridge warm start.  Dense Cholesky and triangular
-solves go to ``torch.linalg`` (cuSOLVER/cuBLAS on the card).  The JAX
-package's row-chunked whitening (``_chunked_rows``/``TRSM_CHUNK_*``) is a
-workaround for the 16 GB TPU v5e and is not ported.
+L = C Lp⁻ᵀ, the ridge warm start, and the Nyström rank reductions: the
+truncated eigendecomposition with its count or eigenvalue-mass selection,
+the randomized range-finder eigensolver, the full type's truncated
+factor and the improved (sparse) Nyström factor, exact below
+:data:`NYSTROEM_EXACT_MAX` landmarks and Cholesky-whitened above.  Dense
+Cholesky, eigh, QR and triangular solves go to ``torch.linalg``
+(cuSOLVER/cuBLAS on the card); every float32 product runs in IEEE
+float32 (TF32 is off, :mod:`..config`).  The JAX package's row-chunked
+whitening (``_chunked_rows``/``TRSM_CHUNK_*``) is a workaround for the
+16 GB TPU v5e and is not ported.
 """
 
 import logging
@@ -15,6 +20,7 @@ import torch
 
 from ..utils.util import DEFAULT_JITTER, add_diagonal
 
+DEFAULT_RANK = 0.99
 DEFAULT_SIGMA = 0
 # relative diagonal tolerance of the pivoted partial Cholesky
 PIVOT_REL_TOL = 1e-6
@@ -106,6 +112,120 @@ def _full_rank(x, cov_func, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
     return safe_cholesky(K, jitter=eff_jitter, max_tries=max_tries)
 
 
+def _noise_floor(sigma, jitter):
+    """max(σ², jitter): a number for a scalar σ, else elementwise."""
+    if isinstance(sigma, torch.Tensor) and sigma.ndim > 0:
+        return torch.clamp_min(sigma * sigma, jitter)
+    return max(float(sigma) ** 2, jitter)
+
+
+def _eigendecomposition(A, rank=DEFAULT_RANK, with_raw_rank=False, force_quantize=False):
+    """Top eigenpairs of the symmetric A, kept by count (an int ``rank``)
+    or by eigenvalue mass (a float): :func:`_select_eigenpairs` on
+    ``torch.linalg.eigh`` (ascending, as ``jnp.linalg.eigh``)."""
+    s, v = torch.linalg.eigh(A)
+    return _select_eigenpairs(s, v, rank, A.shape[0], with_raw_rank, force_quantize)
+
+
+def _select_eigenpairs(s, v, rank, quantize_dim, with_raw_rank=False, force_quantize=False):
+    """The count/mass selection on an ascending eigendecomposition (s, v).
+
+    A float ``rank`` keeps the largest count whose cumulative mass is
+    strictly below ``rank`` times the positive eigenvalues' mass (the
+    reference's searchsorted, so the kept pairs can fall one short of the
+    target; at least 1), rounded UP to a :data:`RANK_BUCKETS` power of two
+    (capped at ``quantize_dim``) above 256 rows or when
+    ``force_quantize``; an int keeps min(rank, positive count).  A matrix
+    with no positive eigenvalue raises ValueError.  The "Recovering"
+    message reports the mass of one pair more than is kept, as the
+    reference does.  Returns (s, v) of the kept pairs, ascending, and with
+    ``with_raw_rank`` the count before the rounding.
+    """
+    n_pos, any_nonpos = torch.stack([torch.count_nonzero(s > 0), torch.any(s <= 0)]).tolist()
+    if any_nonpos:
+        logger.warning(
+            "Covariance matrix is singular (non-positive eigenvalues "
+            "detected); predictions may be unreliable. Consider raising "
+            "the jitter."
+        )
+    p = int(n_pos)
+    if p == 0:
+        message = (
+            "Covariance matrix has no positive eigenvalues; cannot compute "
+            "a low-rank factorization. Consider raising the jitter."
+        )
+        logger.error(message)
+        raise ValueError(message)
+    summed = torch.cumsum(torch.flip(s[-p:], dims=(0,)), dim=0)
+    n_summed = summed.shape[0]
+    if isinstance(rank, float):
+        p = int(torch.searchsorted(summed, summed[-1:] * rank)[0])
+        if p == 0:
+            logger.warning(f"Low variance percentage {rank:%} indicated rank=0. Bumping rank to 1.")
+            p = 1
+        raw_p = p
+        if force_quantize or quantize_dim > 256:
+            quantized = next((b for b in RANK_BUCKETS if b >= p), p)
+            p_stable = min(quantized, quantize_dim)
+            if p_stable != p:
+                logger.info(
+                    "Quantizing eigendecomposition rank %d to %d (shape-stable executables).",
+                    p,
+                    p_stable,
+                )
+                p = p_stable
+    else:
+        p = min(rank, p)
+        raw_p = p
+    # a sketch may hold fewer eigenpairs than quantize_dim
+    p = min(p, s.shape[0])
+    if (isinstance(rank, float) and rank < 1) or rank < n_summed:
+        p_report = min(p, n_summed - 1)
+        frac = float(summed[p_report] / summed[-1])
+        logger.info(f"Recovering {frac:%} variance in eigendecomposition.")
+    if with_raw_rank:
+        return s[-p:], v[:, -p:], raw_p
+    return s[-p:], v[:, -p:]
+
+
+def _sketch_omega(m, p, dtype, device, seed):
+    """The (m, p) Gaussian test matrix of :func:`randomized_eigh`, from a
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (torch cannot
+    draw JAX's threefry stream, so the tests hand over JAX's matrix)."""
+    generator = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn((m, p), dtype=dtype, device=device, generator=generator)
+
+
+def randomized_eigh(A, rank, n_iter=2, seed=0, omega=None):
+    """Randomized truncated eigendecomposition of a symmetric PSD matrix:
+    a Gaussian range finder with p = min(m, rank + 16) columns, ``n_iter``
+    subspace iterations, and an exact eigh of the projected p × p matrix
+    (Halko, Martinsson and Tropp).  ``omega`` is the (m, p) test matrix;
+    by default :func:`_sketch_omega` draws it.  Returns (s, v), ascending,
+    truncated to min(rank, p) pairs."""
+    m = A.shape[0]
+    p = min(m, rank + 16)
+    if omega is None:
+        omega = _sketch_omega(m, p, A.dtype, A.device, seed)
+    Q, _ = torch.linalg.qr(A @ omega)
+    for _ in range(n_iter):
+        Q, _ = torch.linalg.qr(A @ Q)
+    B = Q.T @ (A @ Q)
+    B = 0.5 * (B + B.T)
+    s, U = torch.linalg.eigh(B)
+    keep = min(rank, p)
+    return s[-keep:], Q @ U[:, -keep:]
+
+
+def _full_decomposition_low_rank(x, cov_func, rank=DEFAULT_RANK, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
+    """The full Nyström type's L: the kept eigenpairs of k(x, x) +
+    max(σ², jitter) I, v·√s (a rounded-up rank's non-positive eigenvalues
+    give zero columns)."""
+    W = add_diagonal(cov_func(x, x), _noise_floor(sigma, jitter))
+    s, v = _eigendecomposition(W, rank=rank)
+    return v * torch.sqrt(torch.clamp_min(s, 0.0))
+
+
 def _standard_low_rank(x, cov_func, xu, Lp=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
     """Sparse-Cholesky L = C Lp⁻ᵀ with C = k(x, xu): the kernel tile, then
     one triangular solve (X Lpᵀ = C)."""
@@ -113,6 +233,92 @@ def _standard_low_rank(x, cov_func, xu, Lp=None, sigma=DEFAULT_SIGMA, jitter=DEF
         Lp = _full_rank(xu, cov_func, sigma=sigma, jitter=jitter)
     C = cov_func(x, xu)
     return torch.linalg.solve_triangular(Lp.T, C, upper=True, left=False)
+
+
+def _nystroem_gram(C):
+    """CᵀC."""
+    return C.T @ C
+
+
+# below this landmark count the improved Nyström takes the exact route
+NYSTROEM_EXACT_MAX = 512
+# the first sketch width of the large-m selection; doubled when saturated
+NYSTROEM_SKETCH = 512
+# above this whitened-basis width the selection sketches the Gram
+NYSTROEM_DIRECT_EIGH_MAX = 1024
+
+
+def _modified_low_rank(x, cov_func, xu, rank=DEFAULT_RANK, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
+    """The improved Nyström L with L Lᵀ ≈ C W⁻¹ Cᵀ, C = k(x, xu), W = k(xu, xu).
+
+    Up to :data:`NYSTROEM_EXACT_MAX` landmarks it is the reference's: the
+    QR C = Q R, the eigendecomposition W = v s vᵀ of the stabilized W, the
+    selection on T s⁻¹ Tᵀ with T = R v, and L = Q V √S.  Above, W is
+    factored (Lp, float32 escalating the jitter) and the selection runs on
+    the whitened Gram of H = C Lp⁻ᵀ, whose nonzero spectrum is that of
+    R W⁻¹ Rᵀ (:func:`_nystroem_select_and_project`).
+    """
+    m = xu.shape[0]
+    if m <= NYSTROEM_EXACT_MAX:
+        W = add_diagonal(cov_func(xu, xu), _noise_floor(sigma, jitter))
+        C = cov_func(x, xu)
+        Q, R = torch.linalg.qr(C)
+        s, v = _eigendecomposition(W, rank=m)
+        T = R @ v
+        S, V = _eigendecomposition((T / s) @ T.T, rank=rank)
+        return Q @ V * torch.sqrt(torch.clamp_min(S, 0.0))
+    max_tries = 0 if x.dtype == torch.float64 else 3
+    K = cov_func(xu, xu)
+    if isinstance(sigma, torch.Tensor) and sigma.ndim > 0:
+        # the elementwise floor on the diagonal, no extra first-try jitter
+        Lp = safe_cholesky(add_diagonal(K, _noise_floor(sigma, jitter)), jitter=0.0,
+                           max_tries=max_tries)
+    else:
+        Lp = safe_cholesky(K, jitter=_noise_floor(sigma, jitter), max_tries=max_tries)
+    return _nystroem_select_and_project(_standard_low_rank(x, cov_func, xu, Lp=Lp), rank)
+
+
+def _nystroem_select_and_project(H, rank):
+    """The mass selection on the whitened Gram G = HᵀH and L = H U.
+
+    Up to :data:`NYSTROEM_DIRECT_EIGH_MAX` columns an exact eigh of G;
+    above, :func:`randomized_eigh` with a sketch of
+    :data:`NYSTROEM_SKETCH` columns (at least twice an int rank), doubled
+    while the selected count reaches 3/4 of it.  The selection is rounded
+    up to a power of two (``force_quantize``).
+    """
+    G = _nystroem_gram(H)
+    m = G.shape[0]
+    if m <= NYSTROEM_DIRECT_EIGH_MAX:
+        S, U, _ = _eigendecomposition(G, rank=rank, with_raw_rank=True, force_quantize=True)
+        basis = m
+    else:
+        sketch = min(m, NYSTROEM_SKETCH)
+        if isinstance(rank, int):
+            sketch = min(m, max(sketch, 2 * rank))
+        while True:
+            s_all, v_all = randomized_eigh(G, sketch)
+            S, U, raw_p = _select_eigenpairs(
+                s_all, v_all, rank, m, with_raw_rank=True, force_quantize=True
+            )
+            if raw_p < (3 * sketch) // 4 or sketch >= m:
+                break
+            logger.info(
+                "Nyström mass selection saturated the %d-column sketch "
+                "(selected %d); doubling the sketch.",
+                sketch,
+                raw_p,
+            )
+            sketch = min(2 * sketch, m)
+        basis = sketch
+    logger.info(
+        "Cholesky-whitened Nyström eigensolver: rank %d from the "
+        "%d-column whitened basis of %d landmarks.",
+        S.shape[0],
+        basis,
+        m,
+    )
+    return H @ U
 
 
 def _pivoted_cholesky(K, rel_tol, max_rank):

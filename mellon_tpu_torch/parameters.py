@@ -3,9 +3,9 @@
 Counterpart of ``mellon_tpu/parameters.py``: the gp_type / n_landmarks /
 rank decision tables, landmarks by seeded k-means, k-NN distances, the
 d/mu/ls heuristics (with the fractal d), the Cholesky factors and the
-ridge warm starts.  The full, sparse-Cholesky and fixed GP types are
-ported; the Nyström types raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+ridge warm starts, for every GP type (full, sparse Cholesky, fixed and
+the two Nyström types), and the predictor summaries
+:func:`compute_density_gradient` and :func:`compute_density_diffusion`.
 """
 
 import logging
@@ -13,7 +13,14 @@ import logging
 import torch
 
 from .ops.cluster import k_means
-from .ops.linalg import DEFAULT_SIGMA, _full_rank, _standard_low_rank, ridge_solve
+from .ops.linalg import (
+    DEFAULT_SIGMA,
+    _full_decomposition_low_rank,
+    _full_rank,
+    _modified_low_rank,
+    _standard_low_rank,
+    ridge_solve,
+)
 from .ops.neighbors import EXACT_CAND_DIM_MAX, knn_distances, local_dimensionality
 from .utils.parameter_validation import (
     NORMALIZE_SEQUENCES,
@@ -37,24 +44,9 @@ KMEANS_SUBSAMPLE_THRESHOLD = 200_000
 
 logger = logging.getLogger("mellon_tpu_torch")
 
-_NOT_PORTED_GP = (
-    "gp_type {} is not ported to mellon_tpu_torch yet (ROADMAP Queue 1, "
-    "item 13b: the Nyström GP types); use the full, sparse-Cholesky or "
-    "fixed type."
-)
-_PORTED_GP_TYPES = (
-    GaussianProcessType.FULL,
-    GaussianProcessType.SPARSE_CHOLESKY,
-    GaussianProcessType.FIXED,
-)
 # the subsample of compute_d_factal
 FRACTAL_D_SAMPLES = 500
 FRACTAL_D_SEED = 432
-
-
-def _require_ported_gp_type(gp_type):
-    if gp_type not in _PORTED_GP_TYPES:
-        raise NotImplementedError(_NOT_PORTED_GP.format(gp_type))
 
 
 def compute_rank(gp_type):
@@ -346,7 +338,8 @@ def compute_nn_distances_within_time_points(x, times=None, d=None, normalize=Fal
 
 def compute_Lp(x, cov_func, gp_type=None, landmarks=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
     """Cholesky factor Lp of the landmark covariance, or of the full
-    covariance k(x, x) for the full GP type."""
+    covariance k(x, x) for the full GP type; None for the Nyström types,
+    which factor in :func:`compute_L`."""
     x = ensure_2d(x)
     n_samples = x.shape[0]
     if landmarks is None:
@@ -358,7 +351,8 @@ def compute_Lp(x, cov_func, gp_type=None, landmarks=None, sigma=DEFAULT_SIGMA, j
     gp_type = GaussianProcessType.from_string(gp_type, optional=True)
     if gp_type is None:
         gp_type = compute_gp_type(n_landmarks, 1.0, n_samples)
-    _require_ported_gp_type(gp_type)
+    if gp_type in (GaussianProcessType.FULL_NYSTROEM, GaussianProcessType.SPARSE_NYSTROEM):
+        return None
     if gp_type == GaussianProcessType.FULL:
         logger.info("Computing Lp.")
         return _full_rank(x, cov_func, sigma=sigma, jitter=jitter)
@@ -381,9 +375,11 @@ def validate_compute_L_input(x, cov_func, gp_type, landmarks, Lp, rank, sigma, j
     validate_params(rank, gp_type, n_samples, n_landmarks, landmarks)
     if gp_type == GaussianProcessType.FULL:
         size, what = n_samples, "samples"
-    else:
+    elif gp_type in (GaussianProcessType.SPARSE_CHOLESKY, GaussianProcessType.FIXED):
         size, what = n_landmarks, "landmarks"
-    if Lp is not None and tuple(Lp.shape) != (size, size):
+    else:
+        size = None
+    if size is not None and Lp is not None and tuple(Lp.shape) != (size, size):
         message = f" Wrong shape of Lp {tuple(Lp.shape)} for {gp_type} and {size:,} {what}."
         logger.error(message)
         raise ValueError(message)
@@ -396,15 +392,20 @@ def validate_compute_L_input(x, cov_func, gp_type, landmarks, Lp, rank, sigma, j
 def compute_L(x, cov_func, gp_type=None, landmarks=None, Lp=None, rank=None, sigma=DEFAULT_SIGMA, jitter=DEFAULT_JITTER):
     """Transformation L with L Lᵀ ≈ K: the Cholesky factor of k(x, x) for
     the full type (Lp itself where given), L = k(x, xu) Lp⁻ᵀ for the
-    sparse-Cholesky and fixed types."""
-    x, landmarks, _, _, gp_type, _ = validate_compute_L_input(
+    sparse-Cholesky and fixed types, the truncated eigendecomposition of
+    k(x, x) for the full Nyström type and the improved Nyström factor for
+    the sparse one (``rank``: the eigenpairs or eigenvalue mass kept)."""
+    x, landmarks, _, _, gp_type, rank = validate_compute_L_input(
         x, cov_func, gp_type, landmarks, Lp, rank, sigma, jitter
     )
-    _require_ported_gp_type(gp_type)
     if gp_type == GaussianProcessType.FULL:
         if Lp is None:
             return _full_rank(x, cov_func, sigma=sigma, jitter=jitter)
         return Lp
+    if gp_type == GaussianProcessType.FULL_NYSTROEM:
+        return _full_decomposition_low_rank(x, cov_func, rank=rank, sigma=sigma, jitter=jitter)
+    if gp_type == GaussianProcessType.SPARSE_NYSTROEM:
+        return _modified_low_rank(x, cov_func, landmarks, rank=rank, sigma=sigma, jitter=jitter)
     return _standard_low_rank(x, cov_func, landmarks, Lp=Lp, sigma=sigma, jitter=jitter)
 
 
@@ -434,6 +435,21 @@ def compute_time_derivatives(predictor, x, times=None):
     if hasattr(predictor, "time_derivative"):
         return predictor.time_derivative(x, times)
     return torch.zeros(x.shape[0], dtype=predictor.dtype, device=predictor.device)
+
+
+def compute_density_gradient(predictor, x, times=None):
+    """The predictor's gradient at x (at (x, times) for a time predictor)."""
+    if hasattr(predictor, "time_derivative"):
+        return predictor.gradient(x, times)
+    return predictor.gradient(x)
+
+
+def compute_density_diffusion(predictor, x, times=None):
+    """(sign, log|det|) of the predictor's Hessian at each point of x (at
+    (x, times) for a time predictor)."""
+    if hasattr(predictor, "time_derivative"):
+        return predictor.hessian_log_determinant(x, times)
+    return predictor.hessian_log_determinant(x)
 
 
 def compute_initial_dimensionalities(x, mu_dim, mu_dens, L, nn_distances, d):

@@ -5,6 +5,7 @@ Counterpart of ``mellon_tpu/utils/util.py`` for the density path.
 """
 
 import functools
+import html
 import inspect
 import logging
 import math
@@ -316,3 +317,16 @@ def object_str(obj, dim_names=None):
         ]
         return f"<tensor {' x '.join(dim_strs)}, dtype={obj.dtype}, device={obj.device}>"
     return str(obj)
+
+
+def object_html(obj, dim_names=None):
+    """HTML metadata repr for tensors, escaped text otherwise."""
+    if isinstance(obj, torch.Tensor):
+        return f"<span>{html.escape(object_str(obj, dim_names))}</span>"
+    return f"<span>{html.escape(str(obj))}</span>"
+
+
+def set_verbosity(verbose):
+    """INFO logging of the package with ``verbose``, else WARNING."""
+    logger.setLevel(logging.INFO if verbose else logging.WARNING)
+    logger.info(f"Logging verbosity set to {'INFO' if verbose else 'WARNING'}.")

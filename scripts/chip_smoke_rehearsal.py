@@ -1,8 +1,20 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's FunctionEstimator, DimensionalityEstimator,
-full-GP and time paths (14-19, 21) on the CPU at a reduced size.
+full-GP and time paths (14-19, 21), or with ``--new`` its Nyström, full
+capacity, atlas, dimensionality-NUTS and checkpoint paths (22-26), on the
+CPU at a reduced size.
 
     python scripts/chip_smoke_rehearsal.py [outputs]
+    python scripts/chip_smoke_rehearsal.py --new [label,label,...]
+
+``--new`` runs [nystroem] on the Nyström reference's 8,627 cells with 600
+landmarks (certified against the float64 fit at 2,000, so its
+certificate is printed, not held), [full capacity] with 500 default
+landmarks on the first 2,000 benchmark cells (bars not held: float32 may
+factor there), [atlas] on 20,000 cells with 500 landmarks and its
+subscale on the reference's first 5,000 cells (bars not held), and
+[dimensionality nuts] and [checkpoint] at 4 chains, 30 warmup and 10
+draws.
 
 It runs the paths' own functions with the plain Matern-5/2 version in
 place of the CUDA kernel (counted as launches), on the first 2,000
@@ -32,7 +44,69 @@ import mellon_tpu_torch as mt  # noqa: E402
 from mellon_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 
 
+def new_paths():
+    """The PR 7 paths at a reduced size (see the module docstring)."""
+    from mellon_tpu_torch.ops.hopper_kernels import _matern52_gram as plain
+
+    torch.set_num_threads(4)
+    torch.cuda.synchronize = lambda *args, **kwargs: None
+    torch.cuda.empty_cache = lambda: None
+    mt.config.DEFAULT_DEVICE = "cpu"
+    mt.parameters.DEFAULT_N_LANDMARKS = 500
+    cs.DEVICE = "cpu"
+    cs.FULL_CELLS = 500
+    cs.NYSTROEM = dict(cs.NYSTROEM, n_landmarks=600)
+    cs.ATLAS_CELLS, cs.ATLAS_LANDMARKS, cs.ATLAS_BIG_COLUMNS = 20_000, 500, 300
+    cs.DIM_NUTS_OPTIONS = cs.NUTS_OPTIONS = dict(num_chains=4, num_warmup=30, num_samples=10)
+    cs.NUTS_MIN_ESS, cs.NUTS_MAX_RHAT = 0, float("inf")
+    cs.CERT_MIN_CORR, cs.CERT_MAX_RMSE = -1.0, float("inf")
+    cs.NYSTROEM_CERT_MIN_CORR, cs.NYSTROEM_CERT_MAX_RMSE = -1.0, float("inf")
+    cs.CAPACITY_L_REL = float("inf")
+    sub = np.load(cs.ATLAS_SUB)
+    cs.ATLAS_SUB = os.path.join(ROOT, "build", "rehearsal_atlas_sub.npz")
+    os.makedirs(os.path.dirname(cs.ATLAS_SUB), exist_ok=True)
+    np.savez(cs.ATLAS_SUB, x=sub["x"][:5000], log_density=sub["log_density"][:5000])
+
+    def counting(x, y, ls):
+        hk.matern52_gram.launches += 1
+        return plain(x, y, ls)
+
+    hk._matern52_gram = counting
+    ref = np.load(cs.DATA)
+    x_np = np.asarray(ref["x"][:2000], dtype=np.float32)
+    ld_ref = np.asarray(ref["log_density"][:2000], dtype=np.float64)
+    x_new = torch.as_tensor(x_np[:300])
+    results = {}
+    only = sys.argv[2].split(",") if len(sys.argv) > 2 else None
+    paths = {
+        "nystroem": lambda: cs.nystroem_path(mt),
+        "full capacity": lambda: cs.full_capacity_path(mt, x_np, ld_ref, {}),
+        "atlas": lambda: cs.atlas_path(mt),
+        "nuts": lambda: results.setdefault(
+            "nuts", cs.nuts_path(mt, x_np, x_new, mt.DensityEstimator().fit(x_np))),
+        "dimensionality nuts": lambda: cs.dimensionality_nuts_path(
+            mt, x_np, mt.DimensionalityEstimator().fit(x_np)),
+        "checkpoint": lambda: cs.checkpoint_path(mt, results["nuts"][1], x_new),
+    }
+    return run_paths({k: v for k, v in paths.items() if only is None or k in only})
+
+
+def run_paths(paths):
+    failed = []
+    for label, run in paths.items():
+        t0 = time.perf_counter()
+        try:
+            cs.counted_path(hk, label, run)
+        except AssertionError as error:
+            failed.append(label)
+            print(f"[{label}] bar failed: {error}", flush=True)
+        print(f"[{label}] CPU seconds {time.perf_counter() - t0:.1f}", flush=True)
+    return 1 if failed else 0
+
+
 def main():
+    if sys.argv[1:2] == ["--new"]:
+        return new_paths()
     torch.set_num_threads(4)
     torch.cuda.synchronize = lambda *args, **kwargs: None
     mt.config.DEFAULT_DEVICE = "cpu"
@@ -70,16 +144,7 @@ def main():
         "time predict": lambda: cs.time_predict_path(mt, time_est["est"]),
         "ls_time": lambda: cs.ls_time_path(mt),
     }
-    failed = []
-    for label, run in paths.items():
-        t0 = time.perf_counter()
-        try:
-            cs.counted_path(hk, label, run)
-        except AssertionError as error:
-            failed.append(label)
-            print(f"[{label}] bar failed: {error}", flush=True)
-        print(f"[{label}] CPU seconds {time.perf_counter() - t0:.1f}", flush=True)
-    return 1 if failed else 0
+    return run_paths(paths)
 
 
 if __name__ == "__main__":

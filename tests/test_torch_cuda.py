@@ -467,3 +467,72 @@ def test_batched_cholesky_ladder_rescues_a_singular_group_on_card(cuda):
     for g in range(4):
         a, b = dens32[g].double().cpu().numpy(), dens64[g].cpu().numpy()
         assert np.corrcoef(a, b)[0, 1] > 0.99
+
+
+def _clustered(n, d, seed, spread=0.3):
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(6, d) * 2.0
+    x = centers[rng.randint(0, 6, n)] + spread * rng.randn(n, d)
+    return (x * np.exp(-0.15 * np.arange(d))[None, :]).astype(np.float32)
+
+
+@pytest.mark.parametrize("kwargs", [dict(gp_type="sparse_nystroem", rank=0.999, n_landmarks=800),
+                                    dict(gp_type="full_nystroem", rank=0.999)])
+def test_nystroem_fit_f32_matches_f64_on_card(cuda, kwargs):
+    """Both Nyström types on the card (3,000 cells at d = 10; the sparse
+    one above 512 landmarks takes the whitened route, pruned where float32
+    needs it): float32 against float64, corr >= 0.999, the kernel
+    launched, L on the card."""
+    x = _clustered(3000, 10, seed=72)
+    before = matern52_gram.launches
+    lds = []
+    for dtype in (torch.float32, torch.float64):
+        est = mellon_tpu_torch.DensityEstimator(device=cuda, dtype=dtype, **kwargs)
+        lds.append(est.fit_predict(x).double().cpu().numpy())
+        assert est.gp_type.value == kwargs["gp_type"] and est.L.device.type == "cuda"
+        assert est.Lp is None and np.isfinite(lds[-1]).all()
+    assert np.corrcoef(lds[0], lds[1])[0, 1] >= 0.999
+    assert matern52_gram.launches > before
+
+
+def test_full_capacity_on_card(cuda):
+    """PRUNE_SINGULAR_LANDMARKS = False on the card: 1,500 cells at d = 10
+    with 400 landmarks whose float32 kernel does not factor (test_torch_slice's
+    pruning case) keep every landmark; the float64 factor and L live on the card, and L equals a
+    float64 construction from the plain kernel to a relative RMS of 1e-6.
+    The flag is restored."""
+    from mellon_tpu_torch import config
+
+    x = _clustered(1500, 10, seed=23, spread=1.0)
+    saved = config.PRUNE_SINGULAR_LANDMARKS
+    config.PRUNE_SINGULAR_LANDMARKS = False
+    try:
+        est = mellon_tpu_torch.DensityEstimator(n_landmarks=400, device=cuda)
+        ld = est.fit_predict(x)
+    finally:
+        config.PRUNE_SINGULAR_LANDMARKS = saved
+    assert est.landmarks.shape[0] == 400 and torch.isfinite(ld).all()
+    assert est._f64_Lp is not None, "the float32 landmark kernel factored"
+    assert est._f64_Lp.device.type == "cuda" and est._f64_Lp.dtype == torch.float64
+    x64 = torch.as_tensor(x, device=cuda, dtype=torch.float64)
+    xu = est.landmarks.double()
+    K = matern52_gram_reference(xu, xu, est.ls)
+    Lp = torch.linalg.cholesky(K + est.jitter * torch.eye(400, dtype=torch.float64, device=cuda))
+    L = torch.linalg.solve_triangular(Lp.T, matern52_gram_reference(x64, xu, est.ls),
+                                      upper=True, left=False)
+    rel = ((est.L.double() - L).pow(2).mean().sqrt() / L.pow(2).mean().sqrt()).item()
+    assert rel <= 1e-6
+
+
+def test_bf16_map_on_card(cuda):
+    """precision="bf16" on the card: L stored in bfloat16 for the first
+    phase, then float32; both phases' steps reported, the fit within corr
+    0.999 and std(Δ)/std < 0.05 of the float32 fit."""
+    x = _clustered(20000, 10, seed=74)
+    ref = mellon_tpu_torch.DensityEstimator(n_landmarks=1000, device=cuda)
+    ld32 = ref.fit_predict(x).double().cpu().numpy()
+    est = mellon_tpu_torch.DensityEstimator(landmarks=ref.landmarks, precision="bf16", device=cuda)
+    ld16 = est.fit_predict(x).double().cpu().numpy()
+    assert est.opt_state.phase_steps is not None and est.opt_state.phase_steps[0] > 0
+    assert np.corrcoef(ld16, ld32)[0, 1] > 0.999
+    assert np.std(ld16 - ld32) / np.std(ld32) < 0.05

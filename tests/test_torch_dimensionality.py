@@ -271,10 +271,151 @@ def test_other_optimizers_run(optimizer):
 
 @pytest.mark.parametrize("optimizer", ["nuts", "smc"])
 def test_samplers_raise(optimizer):
-    """The samplers on the (2, m) latents are not ported: refused naming
-    the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.DimensionalityEstimator(optimizer=optimizer, **CPU64)
+    """The samplers on the (2, m) latents: smc raises the JAX package's
+    ValueError in both packages (it samples 1-d latents only) when the fit
+    reaches it; nuts, which the port refused before it was ported, runs
+    and keeps (chains, draws, 2, m) draws (test_nuts_shapes_replayed holds
+    it to the JAX package)."""
+    x = clustered(120, 3, seed=70)
+    est = mt.DimensionalityEstimator(
+        optimizer=optimizer, n_landmarks=15,
+        sampler_options=dict(num_chains=2, num_warmup=5, num_samples=3), **CPU64
+    )
+    if optimizer == "smc":
+        with pytest.raises(ValueError, match="1-d latent vectors"):
+            mellon_tpu.DimensionalityEstimator(optimizer="smc", n_landmarks=15).fit(jnp.asarray(x))
+        with pytest.raises(ValueError, match="1-d latent vectors"):
+            est.fit(x)
+        return
+    est.fit(x)
+    assert est.posterior_samples.shape == (2, 3, 2, 15)
+    assert est.pre_transformation.shape == est.pre_transformation_std.shape == (2, 15)
+    assert torch.isfinite(est.local_dim_x).all()
+
+
+def test_batched_value_and_grad_matches_the_single_one():
+    """The samplers' batched potential at each of four rows equals the
+    single-row loss and gradient (1e-12), less n·offset with an offset."""
+    L, dist, z, mu_dim, mu_dens = _problem(3)
+    rng = np.random.RandomState(4)
+    Z = t64(z.reshape(-1)[None] + 0.1 * rng.randn(4, z.size))
+    single = tl.make_dimensionality_value_and_grad(t64(L), t64(dist), mu_dim, mu_dens)
+    for offset in (0.0, 0.7):
+        batch = tl.make_dimensionality_value_and_grad_batch(t64(L), t64(dist), mu_dim, mu_dens,
+                                                            offset)
+        values, grads = batch(Z)
+        for i in range(4):
+            v, g = single(Z[i])
+            np.testing.assert_allclose(float(values[i]), float(v) - L.shape[0] * offset,
+                                       rtol=1e-12)
+            np.testing.assert_allclose(to_np(grads[i]), to_np(g), rtol=0, atol=1e-12)
+
+
+def test_hessian_closed_form():
+    """The (2m, 2m) Hessian in closed form against torch autograd (1e-10
+    relative) and JAX's jax.hessian of its loss (1e-9 relative: JAX's
+    gammaln second derivative, see test_hessian_diagonal_closed_form)."""
+    L, dist, z, mu_dim, mu_dens = _problem(5)
+    H = to_np(tl.dimensionality_hessian(t64(z).reshape(-1), t64(L), t64(dist), mu_dim, mu_dens))
+
+    def loss(flat):
+        return tl.dimensionality_loss(flat.reshape(2, -1), t64(L), t64(dist), mu_dim, mu_dens)
+
+    auto = to_np(torch.autograd.functional.hessian(loss, t64(z).reshape(-1)))
+    scale = np.abs(auto).max()
+    np.testing.assert_allclose(H, auto, rtol=0, atol=1e-10 * scale)
+    want = jax.hessian(lambda f: jl.dimensionality_loss(f.reshape(2, -1), jnp.asarray(L),
+                                                        jnp.asarray(dist), mu_dim, mu_dens))(
+        jnp.asarray(z).reshape(-1))
+    np.testing.assert_allclose(H, np.asarray(want), rtol=0, atol=1e-9 * scale)
+    np.testing.assert_allclose(np.diag(H), to_np(tl.dimensionality_hessian_diagonal(
+        t64(z).reshape(-1), t64(L), t64(dist), mu_dim, mu_dens)), rtol=1e-12)
+
+
+def test_zero_centered_potential_is_zero_at_z0():
+    """loss(z0)/n as a float32 number; the centred potential ~0 at z0."""
+    L, dist, z, mu_dim, mu_dens = _problem(6)
+    z0 = t64(z).reshape(-1)
+    vg, offset = tl.zero_centered_dimensionality_potential(z0, t64(L), t64(dist), mu_dim, mu_dens)
+    v0 = float(tl.dimensionality_loss(t64(z), t64(L), t64(dist), mu_dim, mu_dens))
+    assert offset == float(np.float32(v0 / L.shape[0]))
+    assert abs(float(vg(z0[None])[0][0])) < 1e-4 * abs(v0)
+
+
+def test_nuts_shapes_replayed(monkeypatch):
+    """The estimator's NUTS on the flattened (2, m) latents, its draws
+    taken from JAX's key schedule through the Draws seam: the chains equal
+    (1e-8) mellon_tpu's run_mcmc of the flattening wrapper of its
+    dimensionality loss from the same MAP (its potential not centred: the
+    port's is lower by n·offset, a constant), with JAX's step count; the
+    estimator's shapes: draws (chains, draws, 2, m), latents and stds (2,
+    m), ESS per flattened latent."""
+    from mellon_tpu.inference import mcmc as jax_mcmc
+    from mellon_tpu_torch.inference import samplers
+
+    from _torch_parity import JaxReplayDraws
+
+    monkeypatch.setattr(samplers, "_subtree_steps",
+                        lambda leaves, depth: torch.full_like(leaves, 2**depth))
+    x = clustered(150, 3, seed=71)
+    jest = mellon_tpu.DimensionalityEstimator(n_landmarks=12)
+    jest.prepare_inference(jnp.asarray(x))
+    run = dict(num_chains=3, num_warmup=10, num_samples=6, max_tree_depth=5)
+    est = mt.DimensionalityEstimator(landmarks=np.asarray(jest.landmarks), optimizer="nuts",
+                                     sampler_options=run, **CPU64)
+    key = jax.random.PRNGKey(3)
+    monkeypatch.setattr(est, "_sampler_generator", lambda: JaxReplayDraws(key))
+    est.fit(x)
+    res = est.mcmc_result
+    assert est.posterior_samples.shape == (3, 6, 2, 12)
+    assert est.pre_transformation.shape == est.pre_transformation_std.shape == (2, 12)
+    assert est.ess.shape == (24,) and est.ess_per_second > 0
+
+    z_map = minimize_lbfgs_flat(est)
+    shape = (2, 12)
+
+    def flat_loss(z, *args):
+        return jl.dimensionality_loss(z.reshape(shape), *args)
+
+    want = jax_mcmc.run_mcmc(flat_loss, jnp.asarray(to_np(z_map)), key,
+                             potential_args=tuple(jnp.asarray(to_np(a)) if torch.is_tensor(a)
+                                                  else a for a in est._loss_args),
+                             target_accept=0.8, initial_step_size=0.1, **run)
+    _, offset = tl.zero_centered_dimensionality_potential(z_map, *est._loss_args)
+    np.testing.assert_allclose(to_np(res.samples), np.asarray(want.samples), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(to_np(res.potential) + x.shape[0] * offset,
+                               np.asarray(want.potential), rtol=1e-8)
+    np.testing.assert_array_equal(to_np(res.num_leapfrog), np.asarray(want.num_leapfrog))
+
+
+def test_nuts_hessian_preconditioned():
+    """precondition="hessian" on the dimensionality model: the Newton
+    polish and the dense closed-form Hessian whiten the flattened latents;
+    the draws come back in the model's coordinates, (chains, draws, 2, m),
+    finite, each latent's mean within three of its draws' stds of the
+    MAP (twenty draws; 100 warmup transitions: with 20 the windowed
+    adaptation ends on an unsettled step size, in the JAX package's
+    scheme too)."""
+    x = clustered(150, 3, seed=72)
+    est = mt.DimensionalityEstimator(
+        n_landmarks=12, optimizer="nuts",
+        sampler_options=dict(num_chains=2, num_warmup=100, num_samples=10, max_tree_depth=6,
+                             precondition="hessian"),
+        **CPU64,
+    )
+    est.fit(x)
+    assert est.posterior_samples.shape == (2, 10, 2, 12)
+    assert torch.isfinite(est.posterior_samples).all() and torch.isfinite(est.local_dim_x).all()
+    z_map = minimize_lbfgs_flat(est).reshape(2, 12)
+    gap = (est.pre_transformation - z_map).abs() / est.pre_transformation_std
+    assert float(gap.max()) < 3.0
+
+
+def minimize_lbfgs_flat(est):
+    """The L-BFGS MAP the estimator's NUTS starts from."""
+    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs
+
+    return minimize_lbfgs(est._value_and_grad, est.initial_value.reshape(-1)).pre_transformation
 
 
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])

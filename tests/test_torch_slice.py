@@ -82,7 +82,7 @@ def test_slice_f32_prunes_like_jax():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        # Nyström types that validate_params admits at 20 landmarks (item 13)
+        # Nyström types that validate_params admits at 20 landmarks
         {"gp_type": "sparse_nystroem"},
         {"rank": 10},
         {"gp_type": "sparse_nystroem", "rank": 0.9},
@@ -92,11 +92,19 @@ def test_slice_f32_prunes_like_jax():
     ],
 )
 def test_unported_options_raise(kwargs):
-    """Options the slice does not port yet refuse with NotImplementedError
-    (naming the ROADMAP item) instead of running something else."""
+    """Options the first slices refused with NotImplementedError (the
+    Nyström types, the two-phase bf16 MAP) now run: on JAX's landmarks each
+    fit takes the JAX package's GP type and rank and agrees with its fit
+    to corr >= 0.99999 and max |Δ| <= 1e-3 of the spread (the bound the
+    optimizers' stopping rule leaves)."""
     x = clustered(100, 3, seed=24)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mellon_tpu_torch.DensityEstimator(n_landmarks=20, **kwargs, **CPU64).fit(x)
+    jest = mellon_tpu.DensityEstimator(n_landmarks=20, **kwargs)
+    ld_j = np.asarray(jest.fit_predict(jnp.asarray(x)))
+    est = mellon_tpu_torch.DensityEstimator(landmarks=np.asarray(jest.landmarks), **kwargs, **CPU64)
+    ld = to_np(est.fit_predict(x))
+    assert est.gp_type.value == jest.gp_type.value and est.L.shape == jest.L.shape
+    corr, err = _agreement(ld, ld_j)
+    assert corr >= 0.99999 and err <= 1e-3, (corr, err)
 
 
 def test_full_gp_type_raises_and_fixed_runs():
