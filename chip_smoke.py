@@ -165,10 +165,7 @@ these paths are kept for phase 4.
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
 elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
 on 2,000 rows at each end, the plain version timed in row blocks.
-``python3 chip_smoke.py --only label,label`` runs the main path and the
-named paths (with the paths they take results from) and the kernel phase
-on their operands, and prints no result line; the script prints its total
-seconds before the result lines.
+The script prints its total seconds before the result lines.
 
 The line before the last is the JSON kernel report (``launches``: over
 all paths; ``ms``, ``plain_ms`` and ``bound_ms``: the kernel's, the plain
@@ -1538,11 +1535,12 @@ def full_capacity_path(mt, x_np, ld_ref, default):
     finally:
         config.PRUNE_SINGULAR_LANDMARKS, config.EXTENDED_PRECISION_WHITEN = flags
     log("[full capacity] " + json.dumps(stats))
-    log(f"[full capacity] bars (float64 whitening): all {ATLAS_LANDMARKS} landmarks kept, L "
+    n_landmarks = mt.parameters.DEFAULT_N_LANDMARKS
+    log(f"[full capacity] bars (float64 whitening): all {n_landmarks} landmarks kept, L "
         f"relative RMS <= {CAPACITY_L_REL}, certificate corr >= {CERT_MIN_CORR}, RMSE/spread "
         f"<= {CERT_MAX_RMSE}")
     main = stats["float64_whitening"]
-    ok = (main["finite"] and main["float64_factor"] and main["landmarks_kept"] == ATLAS_LANDMARKS
+    ok = (main["finite"] and main["float64_factor"] and main["landmarks_kept"] == n_landmarks
           and main["L_relative_rms"] <= CAPACITY_L_REL
           and main["certificate"]["corr"] >= CERT_MIN_CORR
           and main["certificate"]["rmse"] <= CERT_MAX_RMSE)
@@ -1681,7 +1679,7 @@ def checkpoint_path(mt, est, x_new):
     _, save_s = synced_seconds(lambda: mt.save_sampler_state(
         path, samples=res.samples, state=z_last, step_size=res.step_size,
         inv_mass_diag=res.inv_mass_diag, rng_key=generator, metadata={"algorithm": "nuts"}))
-    loaded, load_s = synced_seconds(lambda: mt.load_sampler_state(path, device=DEVICE))
+    loaded, load_s = synced_seconds(lambda: mt.load_sampler_state(path))
     nbytes = os.path.getsize(path + ".npz") + os.path.getsize(path + ".json")
     kw = dict(num_samples=CHECKPOINT_DRAWS, max_tree_depth=10)
     memory = resume_mcmc(potential, z_last, generator, res.step_size, res.inv_mass_diag, **kw)
@@ -1767,10 +1765,7 @@ def staged_fit(est, x, prepared_attributes):
     return stages
 
 
-def main(only=None):
-    """The whole run; ``only`` (a list of path labels) runs the main path
-    and those paths alone, with the kernel phase on their operands, and
-    prints no result line."""
+def main():
     import torch
 
     script_start = time.perf_counter()
@@ -1855,17 +1850,9 @@ def main(only=None):
     path_launches = {"main": launches}
 
     default = {"landmarks_kept": n_kept, "certificate": {"corr": corr, "rmse": rmse}}
-    only = set(only or ())
-    # the paths whose results a selected path takes
-    for path, needs in (("dimensionality nuts", "dimensionality"), ("checkpoint", "nuts")):
-        if path in only:
-            only.add(needs)
 
     def run(label, fn):
-        if only and label not in only:
-            return None
-        result, seconds = synced_seconds(lambda: counted_path(hk, label, fn))
-        result, path_launches[label] = result
+        (result, path_launches[label]), seconds = synced_seconds(lambda: counted_path(hk, label, fn))
         log(f"[{label}] path seconds {seconds!r}")
         return result
 
@@ -1873,9 +1860,7 @@ def main(only=None):
     # JSON, each with its own launch count
     run("uncertainty", lambda: uncertainty_path(mt, x_np, x_new, xq, ld_ref))
     run("advi", lambda: advi_path(mt, x_np, ld_ref))
-    derivs = run("derivatives", lambda: derivatives_path(pred, x_new))
-    if derivs is not None:
-        check_derivatives(pred, *derivs)
+    check_derivatives(pred, *run("derivatives", lambda: derivatives_path(pred, x_new)))
     run("json", lambda: json_path(mt, pred, x_new))
     # 11-13. the posterior samplers
     nuts = run("nuts", lambda: nuts_path(mt, x_np, x_new, est))
@@ -1890,8 +1875,7 @@ def main(only=None):
     run("density full", lambda: density_full_path(mt, x_np, x_new))
     # 18-21. the time-sensitive density model
     time_est = run("time", lambda: time_path(mt, *load_time_course()))
-    if time_est is not None:
-        run("time predict", lambda: time_predict_path(mt, time_est))
+    run("time predict", lambda: time_predict_path(mt, time_est))
     del time_est
     torch.cuda.empty_cache()
     run("time matched", lambda: time_matched_path(mt))
@@ -1902,10 +1886,8 @@ def main(only=None):
     run("full capacity", lambda: full_capacity_path(mt, x_np, ld_ref, default))
     atlas = run("atlas", lambda: atlas_path(mt))
     torch.cuda.empty_cache()
-    if dim is not None:
-        run("dimensionality nuts", lambda: dimensionality_nuts_path(mt, x_np, dim[1]))
-    if nuts is not None:
-        run("checkpoint", lambda: checkpoint_path(mt, nuts[1], x_new))
+    run("dimensionality nuts", lambda: dimensionality_nuts_path(mt, x_np, dim[1]))
+    run("checkpoint", lambda: checkpoint_path(mt, nuts[1], x_new))
     stop_recording()
     launches = sum(path_launches.values())
     if len(calls) != launches:
@@ -1917,21 +1899,16 @@ def main(only=None):
     del nuts, dim
     torch.cuda.empty_cache()
     max_err, rows = kernel_phase(lib, calls)
-    if atlas is not None:
-        xa, ya, ls = atlas[1]
-        del atlas
-        err, row = predict_batch_phase(lib, xa, ya, ls, 0)
-        max_err = max(max_err, err)
-        rows.append(row)
+    xa, ya, ls = atlas[1]
+    del atlas
+    err, row = predict_batch_phase(lib, xa, ya, ls, 0)
+    max_err = max(max_err, err)
+    rows.append(row)
     ms = sum(r["ms"] * r["launches"] for r in rows)
     plain_ms = sum(r["plain_ms"] * r["launches"] for r in rows)
     bound_ms = sum(r["bound_ms"] * r["launches"] for r in rows)
     log(f"[kernel] the paths' {launches} launches: kernel {ms!r} ms, plain "
         f"{plain_ms!r} ms, bound {bound_ms!r} ms, share {bound_ms / ms!r}")
-
-    if only:
-        log(f"[only] ran {sorted(path_launches)}; no result line")
-        return 0
 
     # 9. the wrapper's host time
     host_us = wrapper_host_us()
@@ -1974,6 +1951,4 @@ def main(only=None):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--only"]:
-        sys.exit(main(sys.argv[2].split(",")))
     sys.exit(main())

@@ -9,7 +9,9 @@ run as if it had not stopped.
 
 The random state is a ``torch.Generator``'s: its state bytes are stored as
 a uint8 array named ``rng_state`` and the sidecar's ``"rng"`` entry says
-so, with the generator's device.  A JAX PRNG key cannot cross packages in
+so, with the generator's device.  The sidecar's ``"device"`` entry names
+the device the saved tensors lay on, where the loader puts them back by
+default.  A JAX PRNG key cannot cross packages in
 either direction: saving one raises, loading a checkpoint that holds one
 (``rng_key``, written by ``mellon_tpu``) raises, and ``mellon_tpu``'s
 loader finds no ``rng_key`` in the port's checkpoints.  One process writes
@@ -22,6 +24,8 @@ import os
 
 import numpy as np
 import torch
+
+from .. import config
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -91,20 +95,23 @@ def save_sampler_state(path, *, samples=None, state=None, step_size=None,
     def put(name, value):
         if value is not None:
             arrays[name] = _to_numpy(name, value)
+            if isinstance(value, torch.Tensor):
+                meta.setdefault("device", str(value.device))
 
     put("step_size", step_size)
     put("inv_mass_diag", inv_mass_diag)
     put("samples", samples)
-    if rng_key is not None:
-        if not isinstance(rng_key, torch.Generator):
-            raise TypeError(f"rng_key: {_JAX_KEY}")
-        arrays["rng_state"] = rng_key.get_state().numpy()
-        meta["rng"] = {"kind": RNG_KIND, "device": str(rng_key.device)}
     if state is not None:
         leaves = _flatten(state)
         for i, leaf in enumerate(leaves):
             put(f"state_{i}", leaf)
         arrays["_state_num_leaves"] = np.asarray(len(leaves))
+    if rng_key is not None:
+        if not isinstance(rng_key, torch.Generator):
+            raise TypeError(f"rng_key: {_JAX_KEY}")
+        arrays["rng_state"] = rng_key.get_state().numpy()
+        meta["rng"] = {"kind": RNG_KIND, "device": str(rng_key.device)}
+        meta.setdefault("device", str(rng_key.device))
     if metadata:
         meta.update(metadata)
     base = _base_path(path)
@@ -118,12 +125,13 @@ def load_sampler_state(path, state_template=None, device=None):
     """Load a checkpoint written by :func:`save_sampler_state`.
 
     Returns a dict with keys among {samples, state, step_size,
-    inv_mass_diag, rng_key, metadata}: tensors on ``device`` (the CPU by
-    default), ``state`` in ``state_template``'s structure where one is
-    given (else a list of its leaves), and ``rng_key`` a
-    ``torch.Generator`` in the saved state, on ``device`` or else the
-    device it was saved from.  A checkpoint that holds a JAX key raises
-    ValueError.
+    inv_mass_diag, rng_key, metadata}: tensors on ``device``, by default
+    the device they were saved from (``config.DEFAULT_DEVICE`` where the
+    sidecar names none, as in a mellon_tpu checkpoint), ``state`` in
+    ``state_template``'s structure where one is given (else a list of its
+    leaves), and ``rng_key`` a ``torch.Generator`` in the saved state, on
+    ``device`` or else the device it was saved from.  A checkpoint that
+    holds a JAX key raises ValueError.
     """
     base = _base_path(path)
     data = np.load(base + ".npz")
@@ -138,8 +146,10 @@ def load_sampler_state(path, state_template=None, device=None):
     if "rng_key" in data or (metadata or {}).get("prng_impls"):
         raise ValueError(f"{path} holds a JAX PRNG key (written by mellon_tpu): {_JAX_KEY}")
 
+    saved_on = (metadata or {}).get("device", config.DEFAULT_DEVICE)
+
     def get(name):
-        return torch.as_tensor(data[name], device=device)
+        return torch.as_tensor(data[name], device=saved_on if device is None else device)
 
     out = {}
     for key in ("step_size", "inv_mass_diag", "samples"):
@@ -149,7 +159,7 @@ def load_sampler_state(path, state_template=None, device=None):
         rng = (metadata or {}).get("rng", {})
         if rng.get("kind") != RNG_KIND:
             raise ValueError(f"{path}: the random state's kind {rng.get('kind')!r} is unknown.")
-        generator = torch.Generator(device=device if device is not None else rng["device"])
+        generator = torch.Generator(device=rng["device"] if device is None else device)
         generator.set_state(torch.as_tensor(data["rng_state"]))
         out["rng_key"] = generator
     if "_state_num_leaves" in data:

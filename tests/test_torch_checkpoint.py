@@ -34,7 +34,8 @@ def test_checkpoint_roundtrip(tmp_path):
     assert type(loaded["state"]) is HMCState
     np.testing.assert_allclose(to_np(loaded["state"].z), np.arange(4.0))
     assert float(loaded["step_size"]) == pytest.approx(0.3)
-    assert loaded["metadata"] == {"format_version": FORMAT_VERSION, "algorithm": "nuts"}
+    assert loaded["metadata"] == {"format_version": FORMAT_VERSION, "device": "cpu",
+                                  "algorithm": "nuts"}
     loaded2 = load_sampler_state(str(tmp_path / "ckpt"), state_template=state)
     assert loaded2["metadata"]["algorithm"] == "nuts"
     np.testing.assert_allclose(to_np(loaded2["inv_mass_diag"]), np.ones(4))
@@ -69,6 +70,24 @@ def test_legacy_sidecar_next_to_the_npz_name(tmp_path):
     save_sampler_state(path, step_size=torch.tensor(0.5), metadata={"algorithm": "nuts"})
     (tmp_path / "old.json").rename(tmp_path / "old.npz.json")
     assert load_sampler_state(path)["metadata"]["algorithm"] == "nuts"
+
+
+def test_tensors_load_on_the_device_they_were_saved_from(tmp_path, monkeypatch):
+    """With no ``device=``, tensors go back to the device the sidecar
+    names (the CPU here, whatever config.DEFAULT_DEVICE says), and a
+    mellon_tpu checkpoint, whose sidecar names none, loads on
+    config.DEFAULT_DEVICE; an explicit ``device=`` wins."""
+    monkeypatch.setattr(mt.config, "DEFAULT_DEVICE", "meta")
+    save_sampler_state(tmp_path / "p", samples=torch.ones(2, 3), state=(torch.zeros(3),),
+                       rng_key=torch.Generator().manual_seed(0))
+    assert json.loads((tmp_path / "p.json").read_text())["device"] == "cpu"
+    loaded = load_sampler_state(tmp_path / "p")
+    assert loaded["samples"].device.type == loaded["state"][0].device.type == "cpu"
+    assert loaded["rng_key"].device.type == "cpu"
+    jax_save(str(tmp_path / "j"), samples=jnp.ones((2, 3)), inv_mass_diag=jnp.ones(3))
+    from_jax = load_sampler_state(tmp_path / "j")
+    assert from_jax["samples"].device.type == from_jax["inv_mass_diag"].device.type == "meta"
+    assert load_sampler_state(tmp_path / "j", device="cpu")["samples"].device.type == "cpu"
 
 
 def test_generator_state_round_trip(tmp_path):

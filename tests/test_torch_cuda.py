@@ -536,3 +536,21 @@ def test_bf16_map_on_card(cuda):
     assert est.opt_state.phase_steps is not None and est.opt_state.phase_steps[0] > 0
     assert np.corrcoef(ld16, ld32)[0, 1] > 0.999
     assert np.std(ld16 - ld32) / np.std(ld32) < 0.05
+
+
+def test_checkpoint_saved_on_card_loads_on_card(cuda, tmp_path):
+    """A checkpoint of card tensors and a card generator, loaded with no
+    ``device=``, comes back on the card, generator included, with the
+    same values and the same next draws."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    samples = torch.randn(2, 4, 3, device=cuda, generator=g)
+    state = torch.randn(2, 3, device=cuda, generator=g)
+    mellon_tpu_torch.save_sampler_state(tmp_path / "c", samples=samples, state=state,
+                                        step_size=torch.tensor(0.2, device=cuda), rng_key=g)
+    loaded = mellon_tpu_torch.load_sampler_state(tmp_path / "c")
+    for t in (loaded["samples"], loaded["state"][0], loaded["step_size"]):
+        assert t.device.type == "cuda"
+    assert loaded["rng_key"].device.type == "cuda"
+    assert torch.equal(loaded["samples"], samples) and torch.equal(loaded["state"][0], state)
+    assert torch.equal(torch.randn(5, device=cuda, generator=loaded["rng_key"]),
+                       torch.randn(5, device=cuda, generator=g))

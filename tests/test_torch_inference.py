@@ -228,13 +228,24 @@ def test_lbfgs_bf16_without_loss_args_falls_back(caplog):
     np.testing.assert_allclose(to_np(res.pre_transformation), np.full(4, 3.0), atol=1e-4)
 
 
-def test_bf16_density_estimator_close_to_float32_and_jax():
+def test_bf16_density_estimator_close_to_float32_and_jax(monkeypatch):
     """DensityEstimator(n_landmarks=50, precision="bf16") in float32 on
-    JAX's landmarks: corr > 0.999 and std(Δ)/std < 0.05 against the
-    float32 fit (tests/test_density_estimator.py:296's bars), and corr >
-    0.999 against JAX's bf16 fit; precision="fp8" raises ValueError in
-    both packages."""
+    JAX's landmarks: the coarse phase's L operand is bfloat16, corr >
+    0.999 and std(Δ)/std < 0.05 against the float32 fit
+    (tests/test_density_estimator.py:296's bars), and corr > 0.99999
+    against JAX's bf16 fit; precision="fp8" raises ValueError in both
+    packages."""
     from _torch_parity import jax_x64_off
+    from mellon_tpu_torch.inference import optimizers
+
+    coarse_operands = []
+    cast = optimizers.bf16_operands
+
+    def recording(loss_args):
+        coarse_operands.append(cast(loss_args))
+        return coarse_operands[-1]
+
+    monkeypatch.setattr(optimizers, "bf16_operands", recording)
 
     x = clustered(600, 4, seed=13).astype(np.float32)
     with jax_x64_off():
@@ -245,10 +256,12 @@ def test_bf16_density_estimator_close_to_float32_and_jax():
     est = mellon_tpu_torch.DensityEstimator(landmarks=landmarks, precision="bf16", **CPU32)
     dens = to_np(est.fit_predict(x))
     assert est.opt_state.phase_steps is not None
+    (operands,) = coarse_operands
+    assert [a.dtype for a in operands if getattr(a, "shape", None) == est.L.shape] == [torch.bfloat16]
     ref = to_np(mellon_tpu_torch.DensityEstimator(landmarks=landmarks, **CPU32).fit_predict(x))
     assert np.corrcoef(dens, ref)[0, 1] > 0.999
     assert np.std(dens - ref) / np.std(ref) < 0.05
-    assert np.corrcoef(dens, ld_j)[0, 1] > 0.999
+    assert np.corrcoef(dens, ld_j)[0, 1] > 0.99999
     with pytest.raises(ValueError, match="precision"):
         mellon_tpu.DensityEstimator(precision="fp8")
     with pytest.raises(ValueError, match="precision"):
