@@ -9,7 +9,10 @@ Phases, each printed as it runs (any failure raises and exits non-zero).
 Each path (3, 5-8 and 11-26) runs with the kernel's launch count set to 0
 just before it and read just after, and fails if the kernel was not
 launched; the operands of every kernel call the covariance module makes on
-these paths are kept for phase 4.
+these paths are kept for phase 4.  Path 27's ranks are processes of their
+own: each counts its launches from 0 over its fit and its sharded
+predictor and reports them with its calls' shapes, and the path fails if
+any rank launched the kernel no time.
 
 1. device: the card's name and power limit (from nvidia-smi);
 2. build: nvcc builds the Matern-5/2 kernel from csrc/ into build/;
@@ -160,7 +163,22 @@ these paths are kept for phase 4.
 26. checkpoint: the chains of 11 saved and loaded (save_sampler_state,
    load_sampler_state with the generator's state): CHECKPOINT_DRAWS draws
    resumed from the loaded checkpoint bit-identical to those resumed from
-   memory, and their predictors at the 1,000 points equal.
+   memory, and their predictors at the 1,000 points equal;
+27. parallel: torch.distributed ranks started as processes of
+   scripts/chip_smoke_parallel.py (a FileStore under build/parallel, a
+   60 s group timeout; a rank that fails or outlasts PARALLEL_TIMEOUT
+   fails the script), each preparing the benchmark fit itself.  Two ranks
+   first: NCCL with one card each where the machine has two, else gloo with
+   both on cuda:0 (NCCL takes one rank per card): the cell-sharded value
+   and gradient against the local ones, shard_predict at PREDICT_BATCH
+   points (its kernel launches counted on every rank, its output held to
+   the plain version on that rank's card), chain-sharded NUTS at [nuts]'s
+   budget and bars (its posterior-mean log density against 11's), particle-
+   sharded SMC at [smc]'s, and a checkpoint of the chains.  Then one rank
+   on NCCL: every sharded entry point equal to the unsharded run, the
+   checkpoint resumed on the 1 x 1 mesh, and the cell-sharded
+   log-prob+grad evaluations per second at 100,000 x 5,000 (also at two
+   ranks with two cards).  The ranks' kernel calls join phase 4's.
 
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
 elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
@@ -335,6 +353,8 @@ ATLAS_BIG_COLUMNS = 2200
 # resumes its chains for CHECKPOINT_DRAWS draws
 DIM_NUTS_OPTIONS = NUTS_OPTIONS
 CHECKPOINT_DRAWS = 10
+PARALLEL_WORKER = os.path.join(ROOT, "scripts", "chip_smoke_parallel.py")
+PARALLEL_TIMEOUT = 300
 
 # H100 SXM (NVIDIA's data sheet, at the full 700 W): HBM rate and the
 # peak rates outside the tensor cores
@@ -1701,6 +1721,78 @@ def checkpoint_path(mt, est, x_new):
     return stats
 
 
+def run_ranks(phase, backend, devices, out):
+    """Start one rank of chip_smoke_parallel.py per device, wait for all of
+    them (PARALLEL_TIMEOUT; a rank that outlasts it is killed, with the
+    others), relay their [parallel] lines and return their results."""
+    store = os.path.join(out, f"store_{phase}")
+    if os.path.exists(store):
+        os.remove(store)
+    world = len(devices)
+    procs = [subprocess.Popen([sys.executable, PARALLEL_WORKER, phase, backend, str(world), str(r),
+                               devices[r], store, out],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"a [parallel] {phase} rank hung past {PARALLEL_TIMEOUT} s")
+    for rank, (p, text) in enumerate(zip(procs, texts)):
+        for line in text.splitlines():
+            if line.startswith("[parallel]") or p.returncode:
+                log(line if line.startswith("[parallel]") else f"[parallel {phase} {rank}] {line}")
+        if p.returncode:
+            raise AssertionError(f"[parallel] {phase} rank {rank} exited {p.returncode}")
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out, f"{phase}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def parallel_path(est_nuts, smi):
+    """Path 27: two ranks (NCCL on two cards, else gloo on one), then one
+    rank on NCCL; returns (launches, the ranks' kernel calls as (n, m, d,
+    dtype, ls), stats)."""
+    import numpy as np
+    import torch
+
+    out = os.path.join(ROOT, "build", "parallel")
+    os.makedirs(out, exist_ok=True)
+    for name in os.listdir(out):
+        os.remove(os.path.join(out, name))
+    np.savez(os.path.join(out, "nuts_reference.npz"),
+             log_density=est_nuts.log_density_x.double().cpu().numpy())
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        backend, devices, mode = "nccl", ["cuda:0", "cuda:1"], "NCCL, one card per rank"
+    else:
+        backend, devices, mode = "gloo", ["cuda:0", "cuda:0"], "gloo, both ranks on cuda:0"
+    torch.cuda.empty_cache()
+    results = run_ranks("ranks", backend, devices, out) + run_ranks("one", "nccl", ["cuda:0"], out)
+    log(f"[parallel] ran: two ranks on {backend} ({mode}; {cards} card(s) on this machine), "
+        f"then one rank on NCCL on cuda:0; card {smi}")
+    launches = [r["launches"] for r in results]
+    log(f"[parallel] kernel launches per rank (two ranks, then one): {launches}")
+    if min(launches) <= 0:
+        raise AssertionError(f"a [parallel] rank launched the matern52 kernel no time: {launches}")
+    stats = {f"{r['phase']} rank {r['rank']} ({r['backend']}, {r['device']})": r["stats"]
+             for r in results}
+    for key, value in stats.items():
+        for name in ("rate 1x1", "rate 1x2", "chain-sharded nuts"):
+            if name in value:
+                figure = {k: value[name][k] for k in ("evals_per_second", "ms_per_eval", "leaf_ms",
+                                                       "seconds") if k in value[name]}
+                log(f"[parallel] {key} {name}: {json.dumps(figure)} ({smi})")
+    calls = [tuple(c) for r in results for c in r["calls"]]
+    return sum(launches), calls, stats
+
+
 def wrapper_host_us(calls=1000, turns=4):
     """Host time of one ``matern52_gram`` call (checks, allocation, the
     ctypes call and the launch): a host clock over ``calls`` calls without
@@ -1892,6 +1984,17 @@ def main():
     launches = sum(path_launches.values())
     if len(calls) != launches:
         raise AssertionError(f"{len(calls)} kernel calls were made but {launches} launched")
+    # 27. the ranks count their own launches; their calls are timed and
+    # checked again below on operands of the same shapes
+    (path_launches["parallel"], rank_calls, _), seconds = synced_seconds(
+        lambda: parallel_path(nuts[1], smi))
+    log(f"[parallel] path seconds {seconds!r}")
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    for n, m, d, dtype, ls in rank_calls:
+        dtype = getattr(torch, dtype)
+        calls.append((torch.randn(n, d, device=DEVICE, dtype=dtype, generator=g),
+                      torch.randn(m, d, device=DEVICE, dtype=dtype, generator=g), ls))
+    launches = sum(path_launches.values())
     log(f"[paths] kernel launches: {json.dumps(path_launches)}")
 
     # 4. the kernel against its plain version, on the paths' operands, and

@@ -36,6 +36,7 @@ bf16 × f32 gives them, without a float32 copy of L.
 import math
 
 import torch
+import torch.distributed as dist
 
 from .likelihoods import (
     nearest_neighbors_likelihood,
@@ -70,13 +71,24 @@ def _rmatmul(L, W):
     return out
 
 
-def _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term):
+def _reduce_likelihood(likelihood, grad_likelihood, group):
+    """The likelihood and Lᵀ(1 − e) summed over the ranks of ``group``, in
+    one ``all_reduce`` of the two stacked (as they are without one)."""
+    if group is None:
+        return likelihood, grad_likelihood
+    parts = torch.cat([likelihood[None], grad_likelihood])
+    dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
+    return parts[0], parts[1:]
+
+
+def _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term, group=None):
     k = z.shape[0]
     f = _matmul(L, z) + mu
     e = torch.exp(f + V)
     prior = -(1 / 2) * torch.sum(z * z) - (k / 2) * math.log(2 * math.pi)
-    likelihood = torch.sum((f + Vdr) - e + loss_offset_per_term)
-    return -(prior + likelihood), z - _rmatmul(L, 1 - e)
+    likelihood, grad_likelihood = _reduce_likelihood(
+        torch.sum((f + Vdr) - e + loss_offset_per_term), _rmatmul(L, 1 - e), group)
+    return -(prior + likelihood), z - grad_likelihood
 
 
 def density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
@@ -91,13 +103,15 @@ def density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
     return density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term)[0]
 
 
-def make_density_value_and_grad(L, nn_distances, d, mu, loss_offset_per_term=0.0):
+def make_density_value_and_grad(L, nn_distances, d, mu, loss_offset_per_term=0.0, group=None):
     """``z -> (loss, gradient)`` with the likelihood constants computed once,
-    for the optimizer's repeated evaluations."""
+    for the optimizer's repeated evaluations.  With a process ``group``, L
+    and nn_distances are this rank's rows of the cells, and the likelihood
+    is summed over the group's ranks (:mod:`..parallel.sharding`)."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
 
     def value_and_grad(z):
-        return _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term)
+        return _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term, group)
 
     return value_and_grad
 
@@ -118,11 +132,13 @@ def make_density_loss_batch(L, nn_distances, d, mu):
     return loss_batch
 
 
-def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_term=0.0):
+def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_term=0.0,
+                                      group=None):
     """``Z -> (losses (C,), gradients (C, k))`` at the C rows of Z: the
     samplers' potential, one call per leapfrog for every chain.  F = L Zᵀ + μ
     and the gradient Z − (Lᵀ(1 − E))ᵀ are two (n, k)×(k, C) products;
-    ``loss_offset_per_term`` as in :func:`density_loss`."""
+    ``loss_offset_per_term`` as in :func:`density_loss`, ``group`` as in
+    :func:`make_density_value_and_grad` (one ``all_reduce`` per call)."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
     V, Vdr = V[:, None], Vdr[:, None]
 
@@ -131,8 +147,9 @@ def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_te
         F = L @ Z.T + mu
         E = torch.exp(F + V)
         prior = -(1 / 2) * torch.sum(Z * Z, dim=1) - (k / 2) * math.log(2 * math.pi)
-        likelihood = torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0)
-        return -(prior + likelihood), Z - (L.T @ (1 - E)).T
+        likelihood, grad_likelihood = _reduce_likelihood(
+            torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0), L.T @ (1 - E), group)
+        return -(prior + likelihood), Z - grad_likelihood.T
 
     return value_and_grad
 

@@ -8,8 +8,16 @@ draws.  The step size, dual averaging and Welford stay on the device
 between transitions; the only host reads are the NUTS leaf loop's, one per
 leaf.  PyTorch runs eagerly, so the JAX package's ``steps_per_call`` (it
 bounds how long one compiled XLA program runs) is accepted, validated and
-ignored, as ``jit`` is.  Chain sharding across GPUs is ROADMAP Queue 1
-item 17.
+ignored, as ``jit`` is.
+
+``chain_sharding=`` (:func:`..parallel.chain_sharding`) splits the chains
+in blocks over the ranks of a mesh axis.  Each rank runs its block in
+lockstep, draws through a chain block of the generator
+(:meth:`.samplers.Draws.chain_block`), and joins the others in one
+``all_reduce`` per warmup transition for dual averaging's mean acceptance
+and one ``all_gather`` for Welford's per-block summaries, merged in chain
+order; the result is gathered to every rank.  The potential may itself be
+cell-sharded (:func:`..parallel.shard_density_model`) on the same mesh.
 
 ``sample_density_posterior`` samples the density model's whitened latents
 with the potential zero-centred (:func:`zero_centered_potential`) and,
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import _cholesky_f64_rescue, _jittered_cholesky
+from ..parallel.mesh import check_sharding, sampling_block
 from .losses import density_hessian, make_density_value_and_grad, make_density_value_and_grad_batch
 from .samplers import (
     as_draws,
@@ -34,16 +43,12 @@ from .samplers import (
     hmc_kernel,
     nuts_kernel,
     welford_init,
-    welford_update,
+    welford_merge,
     welford_variance,
 )
 
 logger = logging.getLogger("mellon_tpu_torch")
 
-NOT_PORTED_SHARDING = (
-    "{} is not ported to mellon_tpu_torch yet (ROADMAP Queue 1, item 17: "
-    "parallel/ on several GPUs)."
-)
 BF16_SAMPLING = (
     "precision='bf16' sampling is not ported to mellon_tpu_torch: it failed the "
     "JAX package's posterior-agreement check (ROADMAP, \"Do not port\")."
@@ -66,9 +71,20 @@ class MCMCResult(NamedTuple):
     num_evaluations: int = 0
 
 
-def _refuse_sharding(name, value):
-    if value is not None:
-        raise NotImplementedError(NOT_PORTED_SHARDING.format(name))
+def _welford_chains(state, z, sharding):
+    """``state`` updated with every chain's row of ``z`` (this rank's block
+    under ``sharding``): one (mean, M2) summary per block, gathered and
+    merged in chain order."""
+    mean = z.mean(dim=0)
+    summary = torch.stack([mean, torch.sum((z - mean) ** 2, dim=0)])
+    for block_mean, block_m2 in sharding.gather(summary[None]):
+        state = welford_merge(state, z.shape[0], block_mean, block_m2)
+    return state
+
+
+def _gather_result(result, sharding):
+    fields = ("samples", "potential", "accept_prob", "diverging", "num_leapfrog")
+    return result._replace(**{f: sharding.gather(getattr(result, f)) for f in fields})
 
 
 def _check_steps_per_call(steps_per_call):
@@ -142,17 +158,24 @@ def run_mcmc(
     over the chains by 0.1·N(0, I).  ``generator`` is a ``torch.Generator``
     on z0's device (or a :class:`.samplers.Draws` source).  Returns an
     :class:`MCMCResult` with samples of shape (num_chains, num_samples, k).
+
+    With ``chain_sharding`` (a sharding of :mod:`..parallel`) every rank
+    passes the same global ``z0`` and a generator seeded alike, runs its
+    block of the chains and returns the global result; ``host_reads`` and
+    ``num_evaluations`` are its block's.
     """
-    _refuse_sharding("chain_sharding", chain_sharding)
+    check_sharding(chain_sharding, "chain_sharding")
     _check_steps_per_call(steps_per_call)
     draws = as_draws(generator)
     z0 = torch.atleast_2d(z0)
     if z0.shape[0] == 1 and num_chains > 1:
         z0 = z0 + 0.1 * draws.jitter((int(num_chains), z0.shape[1]), z0)
+    num_chains = z0.shape[0]
+    sharding, z0, draws = sampling_block(chain_sharding, z0, draws, "chains")
     potential = _Counted(value_and_grad)
     kernel = _kernel_for(potential, algorithm, max_tree_depth, num_leapfrog_steps)
     states = hmc_init(potential, z0)
-    num_chains, dim = z0.shape
+    dim = z0.shape[1]
     num_warmup = int(num_warmup)
     n_phase_a = max(num_warmup // 10, 1)
     n_phase_b = max(num_warmup - 2 * n_phase_a, 0)
@@ -165,10 +188,9 @@ def run_mcmc(
         draws.phase(phase, n)
         for _ in range(n):
             states, info = kernel(states, draws, torch.exp(da.log_step), mass)
-            da = da_update(da, info.accept_prob.mean(), target=target_accept)
+            da = da_update(da, sharding.mean(info.accept_prob, num_chains), target=target_accept)
             if welford is not None:
-                for i in range(num_chains):
-                    welford = welford_update(welford, states.z[i])
+                welford = _welford_chains(welford, states.z, sharding)
         return da, welford
 
     # A: step size only, identity mass
@@ -182,7 +204,8 @@ def run_mcmc(
     step_size = torch.exp(da.log_step_avg)
 
     draws.phase(3, int(num_samples))
-    return _sample(kernel, states, draws, step_size, inv_mass, int(num_samples), potential)
+    return _gather_result(
+        _sample(kernel, states, draws, step_size, inv_mass, int(num_samples), potential), sharding)
 
 
 def resume_mcmc(
@@ -199,17 +222,21 @@ def resume_mcmc(
 ):
     """Continue sampling from the chains' last positions ``z0`` with an
     adapted ``step_size`` and ``inv_mass_diag``: no warmup, fresh momenta
-    (exact: the momentum is drawn anew at every transition anyway)."""
-    _refuse_sharding("chain_sharding", chain_sharding)
+    (exact: the momentum is drawn anew at every transition anyway).
+    ``chain_sharding`` as in :func:`run_mcmc`, on any mesh: the run that
+    is resumed may have had another."""
+    check_sharding(chain_sharding, "chain_sharding")
     draws = as_draws(generator)
     z0 = torch.atleast_2d(z0)
+    sharding, z0, draws = sampling_block(chain_sharding, z0, draws, "chains")
     potential = _Counted(value_and_grad)
     kernel = _kernel_for(potential, algorithm, max_tree_depth, num_leapfrog_steps)
     states = hmc_init(potential, z0)
     step_size = torch.as_tensor(step_size, dtype=z0.dtype, device=z0.device)
     inv_mass = torch.as_tensor(inv_mass_diag, dtype=z0.dtype, device=z0.device)
     draws.phase(None, int(num_samples))
-    return _sample(kernel, states, draws, step_size, inv_mass, int(num_samples), potential)
+    return _gather_result(
+        _sample(kernel, states, draws, step_size, inv_mass, int(num_samples), potential), sharding)
 
 
 def zero_centered_potential(z0, L, nn_distances, d, mu):
@@ -221,7 +248,9 @@ def zero_centered_potential(z0, L, nn_distances, d, mu):
     differences of a leapfrog step, which then quantize; dual averaging
     collapses the step size and every tree runs to the depth cap.  The
     offset is subtracted inside the likelihood's reduction, where it keeps
-    the bits that subtracting after the sum would already have lost.
+    the bits that subtracting after the sum would already have lost.  A
+    cell-sharded potential takes the offset of the global operands
+    (:func:`..parallel.shard_density_model`).
     """
     n = L.shape[0]
     v0 = float(make_density_value_and_grad(L, nn_distances, d, mu)(z0)[0])

@@ -35,6 +35,8 @@ import torch
 logger = logging.getLogger("mellon_tpu_torch")
 
 DEFAULT_OPTIMIZER = "L-BFGS-B"
+# accepted by minimize_lbfgsb and ignored: PyTorch runs eagerly
+DEFAULT_JIT = False
 DEFAULT_LBFGS_MAX_ITER = 400
 DEFAULT_LBFGS_TOL = 1e-5
 DEFAULT_MEMORY_SIZE = 10
@@ -55,6 +57,7 @@ LBFGSResult = namedtuple(
     "LBFGSResult", "pre_transformation loss n_steps n_evals converged phase_steps",
     defaults=(None,),
 )
+ResultsLoss = namedtuple("Results", "pre_transformation opt_state loss")
 AdamResult = namedtuple("AdamResult", "pre_transformation opt_state losses")
 AdamState = namedtuple("AdamState", "count mu nu")
 _Trial = namedtuple("_Trial", "step phi dphi gnorm z value grad")
@@ -238,6 +241,46 @@ def minimize_lbfgs(
     result = _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size)
     logger.info("L-BFGS finished after %d steps with loss %.6g.", result.n_steps, result.loss)
     return result
+
+
+def _autograd_value_and_grad(loss_func, *loss_args):
+    """``z -> (loss, gradient)`` of the scalar torch loss
+    ``loss_func(z, *loss_args)`` by autograd."""
+
+    def value_and_grad(z):
+        with torch.enable_grad():
+            zg = z.detach().requires_grad_(True)
+            value = loss_func(zg, *loss_args)
+            (grad,) = torch.autograd.grad(value, zg)
+        return value.detach(), grad
+
+    return value_and_grad
+
+
+def minimize_lbfgsb(
+    loss_func,
+    initial_value,
+    jit=DEFAULT_JIT,
+    max_iter=DEFAULT_LBFGS_MAX_ITER,
+    tol=DEFAULT_LBFGS_TOL,
+    loss_args=(),
+    precision=None,
+):
+    """:func:`minimize_lbfgs` under the JAX package's name and signature:
+    ``loss_func(z, *loss_args)`` is a scalar torch loss, differentiated by
+    autograd; ``precision="bf16"`` runs the two phases on ``loss_args``
+    (:func:`bf16_operands`); ``jit`` is ignored.  Returns ``(pre_transformation,
+    opt_state, loss)`` with the :class:`LBFGSResult` as ``opt_state``."""
+    result = minimize_lbfgs(
+        _autograd_value_and_grad(loss_func, *loss_args),
+        initial_value,
+        max_iter=max_iter,
+        tol=tol,
+        precision=precision,
+        make_value_and_grad=lambda *args: _autograd_value_and_grad(loss_func, *args),
+        loss_args=tuple(loss_args),
+    )
+    return ResultsLoss(result.pre_transformation, result, result.loss)
 
 
 def _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size):

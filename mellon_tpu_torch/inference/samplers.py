@@ -27,6 +27,7 @@ reports too many steps and too low an acceptance probability, and so
 pushes dual averaging's step size down.
 """
 
+import copy
 import math
 from typing import NamedTuple
 
@@ -43,10 +44,25 @@ class Draws:
     from the generator on the operands' device; a generator on another
     device than the operands is refused, not copied across.  A source
     that replays another package's stream overrides the named requests.
+
+    A chain block (:meth:`chain_block`) draws the global shape, all the
+    chains' numbers, and keeps this rank's rows: the ranks of a chain-
+    sharded run never share a stream, and a run whose ranks make the same
+    requests (HMC, SMC) draws what the unsharded run draws.
     """
+
+    # (start, stop, total): the rows this source keeps of ``total`` chains
+    block = None
 
     def __init__(self, generator):
         self.generator = generator
+
+    def chain_block(self, start, stop, total):
+        """A copy of this source on the same generator that keeps chains
+        ``start:stop`` of ``total``."""
+        blocked = copy.copy(self)
+        blocked.block = (start, stop, total)
+        return blocked
 
     def _check(self, like):
         device = torch.device(self.generator.device)
@@ -58,13 +74,20 @@ class Draws:
                 "on the operands' device."
             )
 
-    def normal(self, shape, like):
+    def _draw(self, sample, shape, like):
         self._check(like)
-        return torch.randn(shape, generator=self.generator, dtype=like.dtype, device=like.device)
+        if self.block is None or len(shape) == 0:
+            return sample(shape, generator=self.generator, dtype=like.dtype, device=like.device)
+        start, stop, total = self.block
+        full = sample((total, *shape[1:]), generator=self.generator, dtype=like.dtype,
+                      device=like.device)
+        return full[start:stop]
+
+    def normal(self, shape, like):
+        return self._draw(torch.randn, shape, like)
 
     def uniform(self, shape, like):
-        self._check(like)
-        return torch.rand(shape, generator=self.generator, dtype=like.dtype, device=like.device)
+        return self._draw(torch.rand, shape, like)
 
     def phase(self, index, num_transitions):
         """A run of ``num_transitions`` transitions starts: warmup phase
@@ -477,6 +500,17 @@ def welford_update(state, x):
     mean = state.mean + delta / count
     m2 = state.m2 + delta * (x - mean)
     return WelfordState(mean, m2, count)
+
+
+def welford_merge(state, count, mean, m2):
+    """``state`` combined with the summary (``count`` rows, their ``mean``
+    and ``m2``) of more rows: Chan, Golub and LeVeque's pairwise update,
+    equal to feeding those rows to :func:`welford_update` up to rounding."""
+    total = state.count + count
+    delta = mean - state.mean
+    new_mean = state.mean + delta * (count / total)
+    new_m2 = state.m2 + m2 + delta * delta * (state.count * count / total)
+    return WelfordState(new_mean, new_m2, total)
 
 
 def welford_variance(state, regularize=True):

@@ -11,8 +11,18 @@ stage's four scalars once (β, ESS, acceptance, evidence increment) for the
 step-size controller, the log and the stop at β = 1.
 
 Log-likelihoods and priors are batched: ``Z (P, k) -> (values (P,),
-gradients (P, k))``.  Sharding the particles across GPUs is ROADMAP Queue
-1 item 17.
+gradients (P, k))``.
+
+``mesh=`` (or ``particle_sharding=``) splits the particles in blocks over
+the ranks of a mesh axis.  A rank evaluates and mutates its block; what is
+global is computed globally on every rank: the P log-likelihoods that the
+β bisection, the weights, the ESS and the evidence read are gathered, the
+systematic resampling runs over all P particles with the uniform every
+rank draws alike, and each rank takes its block of the resampled
+particles from the gathered ones.  The draws go through a chain block of
+the generator (:meth:`.samplers.Draws.chain_block`), so a sweep on any
+mesh is the unsharded sweep of the same seed, up to the summation order of
+the global means.
 """
 
 import logging
@@ -28,7 +38,7 @@ from .losses import (
     make_density_loglik_batch,
     make_density_value_and_grad_batch,
 )
-from .mcmc import NOT_PORTED_SHARDING
+from ..parallel.mesh import Mesh, chain_sharding, check_sharding, sampling_block
 from .optimizers import minimize_lbfgs
 from .samplers import as_draws, hmc_init, hmc_kernel
 
@@ -115,17 +125,19 @@ def _systematic_resample(u, log_w, num_particles):
 
 
 def _smc_stage(loglik_fn, prior_logpdf, particles, draws, beta, step_size, target_ess,
-               min_step, num_mutation_steps, num_leapfrog_steps):
+               min_step, num_mutation_steps, num_leapfrog_steps, sharding, num_particles):
     """One tempering stage: weights, next β, evidence and ESS, systematic
-    resampling, HMC mutation.  Everything stays on the device."""
-    num_particles, dim = particles.shape
-    log_lik, _ = loglik_fn(particles)
+    resampling, HMC mutation of this rank's block of the ``num_particles``
+    under ``sharding``.  Everything stays on the device."""
+    dim = particles.shape[1]
+    log_lik = sharding.gather(loglik_fn(particles)[0])
     new_beta = _next_beta(log_lik, beta, target_ess, min_step)
     log_w = (new_beta - beta) * log_lik
     log_ev_inc = torch.logsumexp(log_w, 0) - math.log(num_particles)
     ess = _ess_from_log_weights(log_w)
     idx = _systematic_resample(draws.uniform((), particles), log_w, num_particles)
-    particles = particles[idx]
+    start, stop = sharding.block(num_particles)
+    particles = sharding.gather(particles)[idx[start:stop]]
 
     def potential(Z):
         prior, prior_grad = prior_logpdf(Z)
@@ -135,11 +147,12 @@ def _smc_stage(loglik_fn, prior_logpdf, particles, draws, beta, step_size, targe
     kernel = hmc_kernel(potential, num_steps=num_leapfrog_steps)
     state = hmc_init(potential, particles)
     unit_mass = torch.ones(dim, dtype=particles.dtype, device=particles.device)
-    accept = torch.zeros_like(log_lik)
+    accept = torch.zeros_like(state.potential)
     for _ in range(num_mutation_steps):
         state, info = kernel(state, draws, step_size, unit_mass)
         accept = accept + info.accept_prob
-    return state.z, new_beta, ess, torch.mean(accept / num_mutation_steps), log_ev_inc, log_w
+    return (state.z, new_beta, ess, sharding.mean(accept / num_mutation_steps, num_particles),
+            log_ev_inc, log_w)
 
 
 def run_smc(
@@ -169,6 +182,12 @@ def run_smc(
     step is floored at (remaining gap)/(stages left), so β reaches 1
     within ``max_stages``.  Returns an :class:`SMCResult`; ``log_evidence``
     estimates log ∫ prior(z)·exp(loglik(z)) dz.
+
+    ``mesh=`` splits the particles over its chains axis
+    (``num_particles`` must divide over it); ``particle_sharding=`` (a
+    sharding of :mod:`..parallel`) names another split.  Every rank passes
+    a generator seeded alike and gets the global result; ``loglik_fn`` may
+    be cell-sharded on the same mesh.
     """
     if (prior_sample is None) != (prior_logpdf is None):
         raise ValueError(
@@ -177,9 +196,11 @@ def run_smc(
             "silently target the default N(0, I) prior, biasing the "
             "posterior and evidence estimates."
         )
-    for name, value in (("mesh", mesh), ("particle_sharding", particle_sharding)):
-        if value is not None:
-            raise NotImplementedError(NOT_PORTED_SHARDING.format(name))
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a mellon_tpu_torch.parallel mesh, got {type(mesh).__name__}.")
+    sharding = check_sharding(particle_sharding, "particle_sharding")
+    if sharding is None and mesh is not None:
+        sharding = chain_sharding(mesh)
     draws = as_draws(generator)
     if prior_sample is None:
         like = torch.empty(0, dtype=dtype or torch.get_default_dtype(),
@@ -189,6 +210,7 @@ def run_smc(
     else:
         particles = prior_sample(draws, num_particles)
         prior_fn = prior_logpdf
+    sharding, particles, draws = sampling_block(sharding, particles, draws, "particles")
 
     def scalar(value):
         return torch.tensor(value, dtype=particles.dtype, device=particles.device)
@@ -203,7 +225,8 @@ def run_smc(
         min_step = (1.0 - beta) / (max_stages - stage)
         particles, new_beta, ess, accept, ev_inc, final_log_w = _smc_stage(
             loglik_fn, prior_fn, particles, draws, scalar(beta), scalar(step_size),
-            scalar(target_ess), scalar(min_step), num_mutation_steps, num_leapfrog_steps,
+            scalar(target_ess), scalar(min_step), num_mutation_steps, num_leapfrog_steps, sharding,
+            num_particles,
         )
         # the stage's one host read
         new_beta, ess, accept, ev_inc = torch.stack([new_beta, ess, accept, ev_inc]).tolist()
@@ -228,6 +251,7 @@ def run_smc(
         beta = new_beta
         if beta >= 1.0:
             break
+    particles = sharding.gather(particles)
     return SMCResult(
         particles=particles,
         log_weights=torch.zeros(num_particles, dtype=particles.dtype, device=particles.device),

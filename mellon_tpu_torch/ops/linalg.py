@@ -392,11 +392,17 @@ def select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL, max_rank=None, quantize=Tr
     return piv[:r]
 
 
+def solve_psd_from_cholesky(L, b):
+    """Solve (L Lᵀ) z = b given the lower Cholesky factor L; b is (m,) or
+    (m, p)."""
+    rhs = b[:, None] if b.ndim == 1 else b
+    y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    z = torch.linalg.solve_triangular(L.T, y, upper=True)
+    return z[:, 0] if b.ndim == 1 else z
+
+
 def ridge_solve(L, target, alpha=1.0):
     """Minimize ||L z - target||² + alpha ||z||² through the normal
     equations and a Cholesky of (LᵀL + alpha I)."""
     G = add_diagonal(L.T @ L, alpha)
-    Lc = torch.linalg.cholesky(G)
-    rhs = (L.T @ target)[:, None]
-    y = torch.linalg.solve_triangular(Lc, rhs, upper=False)
-    return torch.linalg.solve_triangular(Lc.T, y, upper=True)[:, 0]
+    return solve_psd_from_cholesky(torch.linalg.cholesky(G), L.T @ target)

@@ -14,8 +14,12 @@ the device the saved tensors lay on, where the loader puts them back by
 default.  A JAX PRNG key cannot cross packages in
 either direction: saving one raises, loading a checkpoint that holds one
 (``rng_key``, written by ``mellon_tpu``) raises, and ``mellon_tpu``'s
-loader finds no ``rng_key`` in the port's checkpoints.  One process writes
-(there is one GPU); nothing is gathered across processes.
+loader finds no ``rng_key`` in the port's checkpoints.
+
+In a run of several ranks (``torch.distributed``), chain-sharded tensors
+are gathered across the ranks first, rank 0 writes, as the JAX package's
+process 0 does, and every rank then passes a barrier; a rank loads onto
+its own CUDA device.
 """
 
 import json
@@ -24,8 +28,10 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import config
+from .mesh import check_sharding
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -82,13 +88,27 @@ def _unflatten(template, leaves):
 
 
 def save_sampler_state(path, *, samples=None, state=None, step_size=None,
-                       inv_mass_diag=None, rng_key=None, metadata=None):
+                       inv_mass_diag=None, rng_key=None, metadata=None, chain_sharding=None):
     """Write a sampler checkpoint to ``<base>.npz`` and ``<base>.json``.
 
     ``state`` is a tensor or a (named) tuple or list of them (an
     ``HMCState``, say); ``rng_key`` is the ``torch.Generator`` the run
     draws from.  A JAX key raises TypeError.
+
+    With ``chain_sharding`` (a sharding of :mod:`.mesh`), ``samples`` and
+    the leaves of ``state`` are this rank's block of the chains and are
+    gathered in chain order.  When a process group is initialized every
+    rank must call this; rank 0 writes (its generator's state) and all
+    ranks wait at a barrier until the files are complete.
     """
+    sharding = check_sharding(chain_sharding, "chain_sharding")
+    if sharding is not None:
+        gather = sharding.gather
+        samples = None if samples is None else gather(samples)
+        state = None if state is None else [gather(leaf) for leaf in _flatten(state)]
+    if dist.is_initialized() and dist.get_rank() != 0:
+        dist.barrier()
+        return
     arrays = {}
     meta = {"format_version": FORMAT_VERSION}
 
@@ -119,6 +139,8 @@ def save_sampler_state(path, *, samples=None, state=None, step_size=None,
     with open(base + ".json", "w") as f:
         json.dump(meta, f)
     logger.info("Wrote sampler checkpoint to %s.npz.", base)
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def load_sampler_state(path, state_template=None, device=None):
@@ -130,8 +152,10 @@ def load_sampler_state(path, state_template=None, device=None):
     sidecar names none, as in a mellon_tpu checkpoint), ``state`` in
     ``state_template``'s structure where one is given (else a list of its
     leaves), and ``rng_key`` a ``torch.Generator`` in the saved state, on
-    ``device`` or else the device it was saved from.  A checkpoint that
-    holds a JAX key raises ValueError.
+    ``device`` or else the device it was saved from.  In a run of several
+    ranks, a checkpoint saved from a CUDA device loads by default onto the
+    calling rank's current CUDA device.  A checkpoint that holds a JAX key
+    raises ValueError.
     """
     base = _base_path(path)
     data = np.load(base + ".npz")
@@ -147,6 +171,8 @@ def load_sampler_state(path, state_template=None, device=None):
         raise ValueError(f"{path} holds a JAX PRNG key (written by mellon_tpu): {_JAX_KEY}")
 
     saved_on = (metadata or {}).get("device", config.DEFAULT_DEVICE)
+    if dist.is_initialized() and torch.device(saved_on).type == "cuda":
+        saved_on = f"cuda:{torch.cuda.current_device()}"
 
     def get(name):
         return torch.as_tensor(data[name], device=saved_on if device is None else device)
@@ -159,7 +185,10 @@ def load_sampler_state(path, state_template=None, device=None):
         rng = (metadata or {}).get("rng", {})
         if rng.get("kind") != RNG_KIND:
             raise ValueError(f"{path}: the random state's kind {rng.get('kind')!r} is unknown.")
-        generator = torch.Generator(device=rng["device"] if device is None else device)
+        rng_device = rng["device"]
+        if dist.is_initialized() and torch.device(rng_device).type == "cuda":
+            rng_device = saved_on
+        generator = torch.Generator(device=rng_device if device is None else device)
         generator.set_state(torch.as_tensor(data["rng_state"]))
         out["rng_key"] = generator
     if "_state_num_leaves" in data:

@@ -54,6 +54,15 @@ def distance_grad(x, eps=1e-12):
     return grad
 
 
+def batched_vmap(func, x, *args, batch_size=100):
+    """``torch.func.vmap(func)`` over row batches of x (``args`` shared by
+    every row), stacked as ``vstack``: it bounds the peak memory of a
+    function of one row applied to many."""
+    vfunc = torch.func.vmap(func, in_dims=(0,) + (None,) * len(args))
+    return torch.vstack([vfunc(x[start : start + batch_size], *args)
+                         for start in range(0, x.shape[0], batch_size)])
+
+
 def _active_index(active_dims):
     if isinstance(active_dims, (int, np.integer)):
         return [int(active_dims)]

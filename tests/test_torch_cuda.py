@@ -6,7 +6,10 @@ so it also runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import datetime
+import os
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -554,3 +557,60 @@ def test_checkpoint_saved_on_card_loads_on_card(cuda, tmp_path):
     assert torch.equal(loaded["samples"], samples) and torch.equal(loaded["state"][0], state)
     assert torch.equal(torch.randn(5, device=cuda, generator=loaded["rng_key"]),
                        torch.randn(5, device=cuda, generator=g))
+
+
+def test_two_ranks_on_two_cards(cuda, tmp_path):
+    """Two NCCL ranks, one card each (this file run as a rank): the
+    cell-sharded potential on the 1 x 2 mesh against the local one
+    (float32, 1e-5 relative), shard_predict against the unsharded
+    predictor (1e-5 of the spread) with the kernel launched on each card,
+    and the kernel on cuda:1 against its plain version (1e-5)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs (NCCL takes one rank per card)")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
+    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(tmp_path / "store")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+             for rank in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        pytest.fail("a rank hung")
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+
+
+def _two_card_rank(rank, store):
+    """One rank of test_two_ranks_on_two_cards, on cuda:<rank>."""
+    from mellon_tpu_torch import parallel
+    from mellon_tpu_torch.ops import hopper_kernels as hk
+
+    device = torch.device("cuda", rank)
+    parallel.distributed_initialize(backend="nccl", device=device, rank=rank, world_size=2,
+                                    store=torch.distributed.FileStore(store, 2),
+                                    timeout=datetime.timedelta(seconds=60))
+    mesh = parallel.create_mesh(1, 2, devices=["cuda:0", "cuda:1"])
+    x = _clustered(3001, 10, seed=77)
+    est = mellon_tpu_torch.DensityEstimator(n_landmarks=300, device=device).fit(x)
+    Z = est.pre_transformation + 0.1 * torch.randn(
+        3, est.L.shape[1], device=device, generator=torch.Generator(device=device).manual_seed(1))
+    loss, _ = parallel.shard_density_model(est.nn_distances, est.d, est.mu, est.L, mesh)
+    v, g = loss.value_and_grad(Z)
+    v0, g0 = make_density_value_and_grad_batch(*est._loss_args)(Z)
+    assert float((v - v0).abs().max() / v0.abs().max()) <= 1e-5
+    assert float((g - g0).abs().max() / g0.abs().max()) <= 1e-5
+    xq = torch.as_tensor(_clustered(20001, 10, seed=78), device=device)
+    before = hk.matern52_gram.launches
+    got = parallel.shard_predict(est.predict, mesh)(xq)
+    assert hk.matern52_gram.launches > before
+    want = est.predict(xq)
+    assert float((got - want).abs().max() / (want.max() - want.min())) <= 1e-5
+    K = matern52_gram(xq[:1000], est.landmarks, 1.7)
+    assert (K - matern52_gram_reference(xq[:1000], est.landmarks, 1.7)).abs().max().item() <= 1e-5
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _two_card_rank(int(sys.argv[1]), sys.argv[2])

@@ -291,9 +291,10 @@ def test_sampler_options_accepted():
 
 
 def test_unported_sampling_options_raise(fitted):
-    """bf16 sampling (ROADMAP "Do not port") and chain sharding (item 17)
-    raise NotImplementedError naming their entry; an unknown precision is
-    a ValueError as in the JAX package."""
+    """bf16 sampling (ROADMAP "Do not port") raises NotImplementedError
+    naming its entry; a chain_sharding that is not a sharding of
+    mellon_tpu_torch.parallel is a TypeError; an unknown precision is a
+    ValueError as in the JAX package."""
     _, est = fitted
     for optimizer in ("nuts", "smc"):
         with pytest.raises(NotImplementedError, match="Do not port"):
@@ -306,7 +307,7 @@ def test_unported_sampling_options_raise(fitted):
         mcmc.sample_density_posterior(est, precondition="dense")
     vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
     for fn, extra in ((mcmc.run_mcmc, ()), (mcmc.resume_mcmc, (0.1, torch.ones(40, dtype=torch.float64)))):
-        with pytest.raises(NotImplementedError, match="item 17"):
+        with pytest.raises(TypeError, match="chain_sharding must be a sharding"):
             fn(vg, est.pre_transformation, torch.Generator(), *extra, chain_sharding=object())
     with pytest.raises(ValueError, match="Unknown MCMC algorithm"):
         mcmc.run_mcmc(vg, est.pre_transformation, torch.Generator(), algorithm="mala")

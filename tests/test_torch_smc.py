@@ -213,15 +213,16 @@ def test_smc_terminates_at_beta_one_on_a_peaked_posterior():
 
 
 def test_run_smc_refuses_what_it_cannot_do():
-    """A one-sided custom prior (it would silently use N(0, I)) and the
-    particle sharding of ROADMAP item 17."""
+    """A one-sided custom prior (it would silently use N(0, I)), and a
+    mesh or particle sharding that is not one of mellon_tpu_torch.parallel."""
     loglik = _gaussian_loglik([0.0, 0.0], 1.0)
     with pytest.raises(ValueError, match="BOTH prior_sample and prior_logpdf"):
         smc.run_smc(loglik, 2, torch.Generator(), num_particles=8, prior_sample=lambda d, n: None)
     with pytest.raises(ValueError, match="BOTH prior_sample and prior_logpdf"):
         smc.run_smc(loglik, 2, torch.Generator(), num_particles=8, prior_logpdf=lambda Z: None)
-    for kw in ({"mesh": object()}, {"particle_sharding": object()}):
-        with pytest.raises(NotImplementedError, match="item 17"):
+    for kw, match in (({"mesh": object()}, "mesh must be"),
+                      ({"particle_sharding": object()}, "particle_sharding must be a sharding")):
+        with pytest.raises(TypeError, match=match):
             smc.run_smc(loglik, 2, torch.Generator(), num_particles=8, **kw)
 
 

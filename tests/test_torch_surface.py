@@ -5,6 +5,7 @@ the density gradient and diffusion helpers, and the reprs."""
 import importlib
 import logging
 import os
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,15 +17,31 @@ import mellon_tpu
 import mellon_tpu_torch as mt
 from mellon_tpu_torch.utils.profiling import PhaseTimer, trace
 
+# they configure JAX itself (x64, platforms, the compilation cache), which
+# the port does not use
 JAX_ONLY = {"setup_jax", "set_jax_config"}
 
 
-def test_exports_cover_the_jax_package():
-    """Every name mellon_tpu exports but its JAX setup shims is exported."""
-    missing = set(mellon_tpu.__all__) - JAX_ONLY - set(mt.__all__)
+def _exported(package):
+    """A package's ``__all__``, or else every name its ``__init__`` binds
+    but modules and dunders (the JAX subpackages have no ``__all__``)."""
+    if hasattr(package, "__all__"):
+        return set(package.__all__)
+    return {name for name, value in vars(package).items()
+            if not name.startswith("__") and not isinstance(value, types.ModuleType)}
+
+
+@pytest.mark.parametrize("subpackage", ["", "inference", "ops", "utils", "models", "parallel"])
+def test_exports_cover_the_jax_package(subpackage):
+    """Every name mellon_tpu (and each of its subpackages) exports but its
+    JAX setup shims is exported by the port's counterpart."""
+    suffix = f".{subpackage}" if subpackage else ""
+    jax_package = importlib.import_module("mellon_tpu" + suffix)
+    port = importlib.import_module("mellon_tpu_torch" + suffix)
+    missing = _exported(jax_package) - JAX_ONLY - _exported(port)
     assert not missing, missing
-    for name in mt.__all__:
-        assert hasattr(mt, name), name
+    for name in _exported(port):
+        assert hasattr(port, name), name
 
 
 @pytest.mark.parametrize(
@@ -123,3 +140,89 @@ def test_reprs(fitted):
     for obj in (est, mt.DimensionalityEstimator(**CPU64), mt.FunctionEstimator(**CPU64),
                 mt.TimeSensitiveDensityEstimator(**CPU64)):
         assert obj._repr_html_().startswith("<h2>")
+
+
+def _loss_problem(n=200, k=40, seed=11):
+    rng = np.random.RandomState(seed)
+    return rng.randn(n, k) * 0.3, np.exp(rng.randn(n) * 0.3 - 1.0), rng.randn(k) * 0.5
+
+
+def test_hessian_diagonal_matches_jax():
+    """inference.hessian_diagonal of the density loss by chunked HVPs (7
+    basis vectors a chunk, a ragged last one) against the JAX package's
+    (1e-10 relative) and the closed form."""
+    from mellon_tpu.inference.losses import density_loss as jax_density_loss
+    from mellon_tpu_torch.inference.losses import density_hessian_diagonal, density_loss
+
+    L, nn, z = _loss_problem()
+    args = (torch.tensor(L), torch.tensor(nn), 4.0, -2.5)
+    got = to_np(mt.inference.hessian_diagonal(density_loss, torch.tensor(z), batch_size=7,
+                                              loss_args=args))
+    want = np.asarray(mellon_tpu.inference.hessian_diagonal(
+        jax_density_loss, jnp.asarray(z), batch_size=7,
+        loss_args=(jnp.asarray(L), jnp.asarray(nn), 4.0, -2.5)))
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    np.testing.assert_allclose(got, to_np(density_hessian_diagonal(torch.tensor(z), *args)),
+                               rtol=1e-10)
+
+
+@pytest.mark.parametrize("precision", [None, "bf16"])
+def test_minimize_lbfgsb_matches_jax(precision):
+    """inference.minimize_lbfgsb takes the JAX package's scalar loss and
+    loss_args: in float64 both reach the optimum of the convex density loss
+    (latents to 1e-6, loss to 1e-10 relative); with precision="bf16", both
+    in float32, their two-phase optima correlate > 0.9999 through L (the
+    bars of test_torch_inference.py).  DEFAULT_JIT is the JAX package's."""
+    from _torch_parity import jax_x64_off
+    from mellon_tpu.inference.losses import density_loss as jax_density_loss
+    from mellon_tpu_torch.inference.losses import density_loss
+
+    assert mt.inference.DEFAULT_JIT is mellon_tpu.inference.DEFAULT_JIT is False
+    L, nn, z0 = _loss_problem(seed=12)
+    dtype = np.float64 if precision is None else np.float32
+    L, nn, z0 = L.astype(dtype), nn.astype(dtype), z0.astype(dtype)
+    tol = 1e-10 if precision is None else 1e-5
+    res = mt.inference.minimize_lbfgsb(density_loss, torch.tensor(z0), tol=tol,
+                                       loss_args=(torch.tensor(L), torch.tensor(nn), 4.0, -2.5),
+                                       precision=precision)
+    jargs = dict(loss_args=(jnp.asarray(L), jnp.asarray(nn), 4.0, -2.5), precision=precision)
+    if precision is None:
+        jres = mellon_tpu.inference.minimize_lbfgsb(jax_density_loss, jnp.asarray(z0), tol=tol,
+                                                    **jargs)
+        np.testing.assert_allclose(to_np(res.pre_transformation),
+                                   np.asarray(jres.pre_transformation), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(res.loss, jres.loss, rtol=1e-10)
+        assert res.opt_state.phase_steps is None
+    else:
+        with jax_x64_off():
+            jres = mellon_tpu.inference.minimize_lbfgsb(jax_density_loss, jnp.asarray(z0),
+                                                        tol=tol, **jargs)
+        f, fj = L @ to_np(res.pre_transformation), L @ np.asarray(jres.pre_transformation)
+        assert np.corrcoef(f, fj)[0, 1] > 0.9999
+        assert res.opt_state.phase_steps is not None
+
+
+def test_solve_psd_from_cholesky_matches_jax():
+    """ops.solve_psd_from_cholesky for a vector and a matrix right-hand side."""
+    rng = np.random.RandomState(3)
+    A = rng.randn(12, 12)
+    A = A @ A.T + 12 * np.eye(12)
+    Lc = np.linalg.cholesky(A)
+    for b in (rng.randn(12), rng.randn(12, 3)):
+        got = to_np(mt.ops.solve_psd_from_cholesky(torch.tensor(Lc), torch.tensor(b)))
+        want = np.asarray(mellon_tpu.ops.solve_psd_from_cholesky(jnp.asarray(Lc), jnp.asarray(b)))
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(A @ got, b, atol=1e-10)
+
+
+def test_batched_vmap_matches_jax():
+    """utils.batched_vmap over row batches (a ragged last one) with a shared
+    argument: the JAX package's vstack of the batches."""
+    rng = np.random.RandomState(4)
+    x, w = rng.randn(23, 3), rng.randn(3, 2)
+    got = to_np(mt.utils.batched_vmap(lambda r, m: torch.tanh(r @ m), torch.tensor(x),
+                                      torch.tensor(w), batch_size=5))
+    want = np.asarray(mellon_tpu.utils.batched_vmap(lambda r, m: jnp.tanh(r @ m), jnp.asarray(x),
+                                                    jnp.asarray(w), batch_size=5))
+    assert got.shape == want.shape == (23, 2)
+    np.testing.assert_allclose(got, want, rtol=1e-12)
