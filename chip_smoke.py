@@ -156,6 +156,15 @@ any rank launched the kernel no time.
    prepared model (both phases' steps), held to the float32 fit (BF16_MIN_CORR,
    BF16_MAX_RMSE); the 50,000 x 50 subscale float32 fit certified against
    benchdata/ref_atlas_sub_50000x50_f64.npz with the main path's bars;
+   then atlas nuts, counted on its own: configuration 5's sampler
+   (scripts/atlas_nuts_bench.py's flow with precond) from the float32 MAP:
+   the zero-centred potential, the Newton polish, the MAP-Hessian Cholesky
+   and T = R^-T (each timed), NUTS in w (ATLAS_NUTS), the draws unwhitened;
+   over ATLAS_SUBSET latents split-R-hat <= NUTS_MAX_RHAT, min-ESS >=
+   NUTS_MIN_ESS and each posterior std within STD_RATIO of
+   sqrt(diag(T T^T)); the posterior-mean log density at the cells within
+   POSTERIOR_MIN_CORR of the MAP's, and its predictor at 1,000 cells
+   (ATLAS_PREDICT_REL); the posterior mean saved to ATLAS_POSTERIOR;
 25. dimensionality nuts: DimensionalityEstimator(optimizer="nuts") with
    DIM_NUTS_OPTIONS: split-R-hat <= NUTS_MAX_RHAT, draws (chains, draws,
    2, k), finite positive local dimensions, their correlation with the
@@ -178,7 +187,16 @@ any rank launched the kernel no time.
    on NCCL: every sharded entry point equal to the unsharded run, the
    checkpoint resumed on the 1 x 1 mesh, and the cell-sharded
    log-prob+grad evaluations per second at 100,000 x 5,000 (also at two
-   ranks with two cards).  The ranks' kernel calls join phase 4's.
+   ranks with two cards).  Then the atlas on the 2 x 2 (chains x cells)
+   mesh: four NCCL ranks, one card each, at 1M x 50 where the machine has
+   four cards, else four gloo ranks on cuda:0 at 100,000 x 50 (the
+   collectives and the control flow, not the scale): every rank's fit
+   bit-identical, the sharded Hessian and its diagonal against the whole-L
+   ones, the global L freed, z* and T identical on every rank,
+   chain-sharded preconditioned NUTS at ATLAS_NUTS (split-R-hat, the
+   posterior-mean log density against the MAP's and, at 1M, against
+   24's), shard_predict of the posterior mean at PREDICT_BATCH points.
+   The ranks' kernel calls join phase 4's.
 
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
 elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
@@ -349,6 +367,23 @@ BF16_MAX_RMSE = 0.02
 # an atlas-shaped kernel call past 2**31 output elements, checked whatever
 # the atlas fit keeps (1M x 2,048 is below 2**31)
 ATLAS_BIG_COLUMNS = 2200
+# configuration 5's sampler (scripts/atlas_nuts_bench.py:60-140 with
+# precond): Hessian-preconditioned NUTS on the atlas MAP in whitened w, 8
+# chains.  The JAX script's depth 10 lets an early warmup tree cost 1,023
+# leaves, ~6 s at 1M cells; depth 8 caps one at 255.  Its bars hold
+# ATLAS_SUBSET latents drawn as the JAX script draws them
+# (np.random.RandomState(0)); the posterior std of each against the
+# Gaussian at the MAP, sqrt(diag(T Tᵀ)) = sqrt(diag(H⁻¹)), within STD_RATIO
+ATLAS_NUTS = dict(num_chains=8, num_warmup=80, num_samples=80, max_tree_depth=8,
+                  initial_step_size=0.5)
+ATLAS_NUTS_SEED = 1
+ATLAS_SUBSET = 256
+ATLAS_POSTERIOR = os.path.join(ROOT, "build", "atlas_nuts_posterior_mean.npz")
+# the posterior-mean predictor at 1,000 atlas cells against f = L z + mu
+# there, over f's spread: its float32 weights Lp^-T z and k(x, xu) take
+# another rounding path than L = C Lp^-T; at the MAP the H100 read 3.7e-3
+# (PERF.md), where the bench shape holds 1e-3
+ATLAS_PREDICT_REL = 1e-2
 # the dimensionality model's NUTS at [nuts]'s budget; the checkpoint
 # resumes its chains for CHECKPOINT_DRAWS draws
 DIM_NUTS_OPTIONS = NUTS_OPTIONS
@@ -1587,7 +1622,8 @@ def atlas_path(mt):
     fit of the 1M x 50 cells with 5,000 landmarks, the bf16 MAP on the same
     prepared model held to it, and the 50,000 x 50 subscale float32 fit
     certified against its float64 reference.  Returns (stats, the atlas
-    cells and landmarks for the kernel phase's 2**31-element check)."""
+    cells and landmarks for the kernel phase's 2**31-element check, the
+    estimator holding the float32 MAP again for [atlas nuts])."""
     import numpy as np
     import torch
 
@@ -1596,13 +1632,16 @@ def atlas_path(mt):
     x_np, data_s = synced_seconds(lambda: atlas_cells(ATLAS_CELLS, ATLAS_DIMS, ATLAS_SEED))
     est = mt.DensityEstimator(n_landmarks=ATLAS_LANDMARKS, device=DEVICE)
     stages = staged_fit(est, x_np, PREPARED_ATTRIBUTES)
-    ld32 = est.log_density_x
+    z32, ld32 = est.pre_transformation, est.log_density_x
     steps32 = est.opt_state.n_steps
     lbfgs32 = stages["lbfgs"]
     est.precision = "bf16"
     _, lbfgs16 = synced_seconds(est.run_inference)
     ld16 = est.process_inference(build_predict=False)
+    bf16_opt = est.opt_state
     corr, rmse = agreement(ld16, ld32)
+    # the float32 MAP again, for [atlas nuts]
+    est.precision, est.pre_transformation, est.log_density_x = None, z32, ld32
     L = est.L
     stats = {
         "cells": list(x_np.shape), "data_seconds": data_s, "stage_seconds": stages,
@@ -1611,8 +1650,8 @@ def atlas_path(mt):
         "knn_seconds": stages["nn_distances"], "landmarks_kept": int(est.landmarks.shape[0]),
         "rank": int(L.shape[1]), "L_bytes": L.numel() * L.element_size(),
         "lbfgs_f32": {"seconds": lbfgs32, "steps": steps32},
-        "lbfgs_bf16": {"seconds": lbfgs16, "phase_steps": list(est.opt_state.phase_steps),
-                       "evaluations": est.opt_state.n_evals},
+        "lbfgs_bf16": {"seconds": lbfgs16, "phase_steps": list(bf16_opt.phase_steps),
+                       "evaluations": bf16_opt.n_evals},
         "bf16_vs_f32": {"corr": corr, "rmse": rmse},
     }
     big = (torch.as_tensor(x_np, device=DEVICE), est.landmarks[:ATLAS_BIG_COLUMNS], est.ls)
@@ -1620,8 +1659,7 @@ def atlas_path(mt):
         g = torch.Generator(device=DEVICE).manual_seed(ATLAS_SEED)
         pick = torch.randperm(x_np.shape[0], device=DEVICE, generator=g)[:ATLAS_BIG_COLUMNS]
         big = (big[0], big[0][pick], est.ls)
-    del est, L
-    torch.cuda.empty_cache()
+    del L
     sub = np.load(ATLAS_SUB)
     est_sub = mt.DensityEstimator(n_landmarks=ATLAS_LANDMARKS, device=DEVICE)
     ld_sub, sub_s = synced_seconds(lambda: est_sub.fit_predict(np.asarray(sub["x"], dtype=np.float32)))
@@ -1636,7 +1674,112 @@ def atlas_path(mt):
           and sub_corr >= CERT_MIN_CORR and sub_rmse <= CERT_MAX_RMSE)
     if not ok:
         raise AssertionError(f"atlas failed its bars: {stats}")
-    return stats, big
+    return stats, big, est
+
+
+class CountedCalls:
+    """A batched potential that counts its calls: one per lockstep leaf."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, Z):
+        self.calls += 1
+        return self.fn(Z)
+
+
+def latent_subset(k):
+    """ATLAS_SUBSET latents of k, drawn as scripts/atlas_nuts_bench.py draws
+    them."""
+    import numpy as np
+
+    return np.sort(np.random.RandomState(0).choice(k, size=min(k, ATLAS_SUBSET), replace=False))
+
+
+def atlas_nuts_path(mt, est, smi):
+    """Configuration 5's sampler on one card (scripts/atlas_nuts_bench.py's
+    flow with precond) from the float32 MAP of [atlas]: the zero-centred
+    potential, the Newton polish, the MAP-Hessian Cholesky and T = R⁻ᵀ
+    (each timed), NUTS in w (ATLAS_NUTS), the draws unwhitened; bars over
+    ATLAS_SUBSET latents (split-R-hat, min-ESS, each posterior std against
+    sqrt(diag(T Tᵀ))) and the posterior-mean log density at the cells
+    against the MAP's; its predictor at 1,000 cells against f there.  The
+    posterior mean goes to ATLAS_POSTERIOR for the atlas mesh phase."""
+    import numpy as np
+    import torch
+
+    from mellon_tpu_torch.inference import mcmc
+    from mellon_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
+    from mellon_tpu_torch.inference.losses import density_hessian
+
+    args = est._loss_args
+    z0, ld_map = est.pre_transformation, est.log_density_x
+    value_and_grad, offset = mcmc.zero_centered_potential(z0, *args)
+    hessian = lambda z: density_hessian(z, *args)  # noqa: E731
+    (z_map, gn0, gn1), polish_s = synced_seconds(
+        lambda: mcmc.newton_polish(value_and_grad, hessian, z0))
+    H, build_s = synced_seconds(lambda: hessian(z_map))
+    T, factor_s = synced_seconds(lambda: mcmc.precondition_transform(mcmc.hessian_cholesky(H)))
+    del H
+    potential = CountedCalls(mcmc.preconditioned_potential(value_and_grad, T, z_map))
+    opts = {k: v for k, v in ATLAS_NUTS.items() if k != "num_chains"}
+    w0 = torch.zeros(ATLAS_NUTS["num_chains"], z_map.shape[0], device=DEVICE, dtype=z_map.dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(ATLAS_NUTS_SEED)
+    res, seconds = synced_seconds(lambda: mcmc.run_mcmc(potential, w0, gen, **opts))
+    samples = mcmc.unwhiten_samples(res.samples, T, z_map)
+    chains, draws, k = samples.shape
+    sub = latent_subset(k)
+    picked = samples[:, :, torch.as_tensor(sub, device=samples.device)]
+    ess = effective_sample_size(picked)
+    rhat = float(np.max(split_rhat(picked)))
+    std = picked.reshape(-1, len(sub)).std(dim=0, correction=0)
+    gauss = torch.sqrt((T * T).sum(dim=1))
+    ratio = (std / gauss[torch.as_tensor(sub, device=gauss.device)]).double().cpu().numpy()
+    all_ratio = (samples.reshape(-1, k).std(dim=0, correction=0) / gauss).double().cpu().numpy()
+    z_mean = samples.reshape(-1, k).mean(dim=0)
+    ld_post = est.transform(z_mean)
+    corr = log_density_corr(ld_post, ld_map)
+    pred = posterior_predictor(est, samples.reshape(-1, k))
+    cells = torch.as_tensor(est.x[:1000], device=DEVICE)
+    at_cells = pred(cells)
+    spread = float(ld_post.max() - ld_post.min())
+    pred_err = float((at_cells - ld_post[:1000]).abs().max()) / spread
+    os.makedirs(os.path.dirname(ATLAS_POSTERIOR), exist_ok=True)
+    np.savez(ATLAS_POSTERIOR, z_mean=z_mean.double().cpu().numpy(),
+             log_density=ld_post.double().cpu().numpy())
+    stats = {
+        "cells": list(est.x.shape), "latents": k, "settings": ATLAS_NUTS,
+        "seed": ATLAS_NUTS_SEED, "offset_per_cell": offset, "newton_grad_norm": [gn0, gn1],
+        "newton_seconds": polish_s, "hessian_build_seconds": build_s,
+        "hessian_factor_seconds": factor_s, "sampling_seconds": seconds,
+        "step_size": float(res.step_size), "mean_accept": float(res.accept_prob.mean()),
+        "divergences": int(res.diverging.sum()),
+        "leapfrogs_per_draw": float(res.num_leapfrog.double().mean()),
+        "lockstep_leaves": potential.calls, "ms_per_leaf": 1e3 * seconds / potential.calls,
+        "host_reads_per_draw_transition": res.host_reads / draws,
+        "draws_per_second": chains * draws / seconds,
+        "ess_min": float(ess.min()), "ess_median": float(np.median(ess)),
+        "ess_min_per_second": float(ess.min()) / seconds, "max_rhat": rhat,
+        "std_ratio_subset": [float(ratio.min()), float(np.median(ratio)), float(ratio.max())],
+        "std_ratio_all": [float(all_ratio.min()), float(np.median(all_ratio)),
+                          float(all_ratio.max())],
+        "corr_with_map": corr, "predictor_at_cells_err_over_spread": pred_err,
+    }
+    log("[atlas nuts] " + json.dumps(stats))
+    log(f"[atlas nuts] card {smi}; times: the polish, the Hessian build, its float64 factor "
+        f"and inverse, the sampling (warmup and draws; ms per leaf over both); std ratios "
+        f"[min, median, max]")
+    log(f"[atlas nuts] bars over {len(sub)} latents: max split-R-hat <= {NUTS_MAX_RHAT}, "
+        f"min-ESS >= {NUTS_MIN_ESS}, each std ratio in {list(STD_RATIO)}; corr >= "
+        f"{POSTERIOR_MIN_CORR}; predictor at the cells within {ATLAS_PREDICT_REL} of the "
+        f"spread; all finite")
+    ok = (finite(samples, ld_post, at_cells) and rhat <= NUTS_MAX_RHAT
+          and float(ess.min()) >= NUTS_MIN_ESS
+          and STD_RATIO[0] <= float(ratio.min()) and float(ratio.max()) <= STD_RATIO[1]
+          and corr >= POSTERIOR_MIN_CORR and pred_err <= ATLAS_PREDICT_REL)
+    if not ok:
+        raise AssertionError(f"atlas nuts failed its bars: {stats}")
+    return stats
 
 
 def dimensionality_nuts_path(mt, x_np, est_map):
@@ -1757,8 +1900,9 @@ def run_ranks(phase, backend, devices, out):
 
 def parallel_path(est_nuts, smi):
     """Path 27: two ranks (NCCL on two cards, else gloo on one), then one
-    rank on NCCL; returns (launches, the ranks' kernel calls as (n, m, d,
-    dtype, ls), stats)."""
+    rank on NCCL, then the atlas on the 2 x 2 mesh (four NCCL ranks on four
+    cards at 1M cells, else four gloo ranks on one card at 100k); returns
+    (launches, the ranks' kernel calls as (n, m, d, dtype, ls), stats)."""
     import numpy as np
     import torch
 
@@ -1773,21 +1917,29 @@ def parallel_path(est_nuts, smi):
         backend, devices, mode = "nccl", ["cuda:0", "cuda:1"], "NCCL, one card per rank"
     else:
         backend, devices, mode = "gloo", ["cuda:0", "cuda:0"], "gloo, both ranks on cuda:0"
+    if cards >= 4:
+        atlas = ("nccl", [f"cuda:{r}" for r in range(4)],
+                 f"NCCL, one card per rank, {ATLAS_CELLS:,} x {ATLAS_DIMS}")
+    else:
+        atlas = ("gloo", ["cuda:0"] * 4, f"gloo, all four ranks on cuda:0, 100,000 x {ATLAS_DIMS}")
     torch.cuda.empty_cache()
-    results = run_ranks("ranks", backend, devices, out) + run_ranks("one", "nccl", ["cuda:0"], out)
+    results = (run_ranks("ranks", backend, devices, out) + run_ranks("one", "nccl", ["cuda:0"], out)
+               + run_ranks("atlas", *atlas[:2], out))
     log(f"[parallel] ran: two ranks on {backend} ({mode}; {cards} card(s) on this machine), "
-        f"then one rank on NCCL on cuda:0; card {smi}")
+        f"then one rank on NCCL on cuda:0, then the atlas on 2 x 2 ranks on {atlas[0]} "
+        f"({atlas[2]}); card {smi}")
     launches = [r["launches"] for r in results]
-    log(f"[parallel] kernel launches per rank (two ranks, then one): {launches}")
+    log(f"[parallel] kernel launches per rank (two ranks, one, the four atlas ranks): {launches}")
     if min(launches) <= 0:
         raise AssertionError(f"a [parallel] rank launched the matern52 kernel no time: {launches}")
     stats = {f"{r['phase']} rank {r['rank']} ({r['backend']}, {r['device']})": r["stats"]
              for r in results}
     for key, value in stats.items():
-        for name in ("rate 1x1", "rate 1x2", "chain-sharded nuts"):
+        for name in ("rate 1x1", "rate 1x2", "chain-sharded nuts", "atlas nuts"):
             if name in value:
                 figure = {k: value[name][k] for k in ("evals_per_second", "ms_per_eval", "leaf_ms",
-                                                       "seconds") if k in value[name]}
+                                                       "all_reduce_ms_per_leaf", "seconds")
+                          if k in value[name]}
                 log(f"[parallel] {key} {name}: {json.dumps(figure)} ({smi})")
     calls = [tuple(c) for r in results for c in r["calls"]]
     return sum(launches), calls, stats
@@ -1977,6 +2129,8 @@ def main():
     run("nystroem", lambda: nystroem_path(mt))
     run("full capacity", lambda: full_capacity_path(mt, x_np, ld_ref, default))
     atlas = run("atlas", lambda: atlas_path(mt))
+    run("atlas nuts", lambda: atlas_nuts_path(mt, atlas[2], smi))
+    atlas = atlas[:2]
     torch.cuda.empty_cache()
     run("dimensionality nuts", lambda: dimensionality_nuts_path(mt, x_np, dim[1]))
     run("checkpoint", lambda: checkpoint_path(mt, nuts[1], x_new))

@@ -6,6 +6,13 @@ chunked Hessian-vector products; the estimator hands this module the
 diagonal itself (for the density loss in closed form:
 :func:`.losses.density_hessian_diagonal`).  :func:`hessian_diagonal` is
 the JAX package's chunked extraction, for a loss without a closed form.
+
+A cell-sharded loss (:func:`..parallel.shard_density_model`) sums its
+cells with an ``all_reduce`` that ``torch.func`` cannot differentiate, so
+:func:`hessian_diagonal` raises the RuntimeError of
+``losses.SHARDED_DERIVATIVES`` on it rather than return this rank's part
+of the diagonal; its Laplace stds are
+``compute_laplace_std(loss_func.hessian_diagonal(z))``.
 """
 
 import logging
@@ -22,7 +29,8 @@ def hessian_diagonal(loss_func, z, batch_size=512, loss_args=()):
     """Diagonal of the Hessian of the scalar torch loss ``loss_func(z,
     *loss_args)`` at z: forward-over-reverse Hessian-vector products with
     the basis vectors, ``batch_size`` of them at a time (``torch.func``'s
-    vmap of a jvp of the gradient)."""
+    vmap of a jvp of the gradient).  RuntimeError for a cell-sharded loss
+    (see the module's note)."""
     flat = z.detach().reshape(-1)
     k = flat.numel()
 

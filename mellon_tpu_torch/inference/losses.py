@@ -50,6 +50,12 @@ from .likelihoods import (
 # rows of a bfloat16 L upcast at a time
 BF16_CHUNK_ROWS = 65536
 
+SHARDED_DERIVATIVES = (
+    "A cell-sharded density loss sums its cells with an all_reduce that autograd and "
+    "torch.func cannot differentiate: use its closed forms (loss_func.value_and_grad, "
+    "loss_func.hessian, loss_func.hessian_diagonal)."
+)
+
 
 def _matmul(L, Z):
     """L @ Z, with a bfloat16 L upcast to Z's dtype in row blocks."""
@@ -73,10 +79,14 @@ def _rmatmul(L, W):
 
 def _reduce_likelihood(likelihood, grad_likelihood, group):
     """The likelihood and Lᵀ(1 − e) summed over the ranks of ``group``, in
-    one ``all_reduce`` of the two stacked (as they are without one)."""
+    one ``all_reduce`` of the two stacked (as they are without one).  The
+    in-place ``all_reduce`` is invisible to autograd and ``torch.func``,
+    which would differentiate this rank's terms alone: a RuntimeError."""
     if group is None:
         return likelihood, grad_likelihood
     parts = torch.cat([likelihood[None], grad_likelihood])
+    if parts.requires_grad or torch._C._functorch.is_functorch_wrapped_tensor(parts):
+        raise RuntimeError(SHARDED_DERIVATIVES)
     dist.all_reduce(parts, op=dist.ReduceOp.SUM, group=group)
     return parts[0], parts[1:]
 
@@ -95,6 +105,14 @@ def density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
     """``(loss, gradient)`` of the density model at z (0-d tensor, (k,))."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
     return _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term)
+
+
+def zero_centering_offset(z0, L, nn_distances, d, mu):
+    """``(loss(z0)/n rounded to float32, loss(z0))``: the per-term offset
+    that zero-centres the density potential at z0, from the global
+    operands (``mellon_tpu/inference/mcmc.py:zero_centered_potential``)."""
+    v0 = float(density_value_and_grad(z0, L, nn_distances, d, mu)[0])
+    return torch.tensor(v0 / L.shape[0], dtype=torch.float32).item(), v0
 
 
 def density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
@@ -133,13 +151,24 @@ def make_density_loss_batch(L, nn_distances, d, mu):
 
 
 def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_term=0.0,
-                                      group=None):
+                                      group=None, center=None):
     """``Z -> (losses (C,), gradients (C, k))`` at the C rows of Z: the
     samplers' potential, one call per leapfrog for every chain.  F = L Zᵀ + μ
     and the gradient Z − (Lᵀ(1 − E))ᵀ are two (n, k)×(k, C) products;
     ``loss_offset_per_term`` as in :func:`density_loss`, ``group`` as in
-    :func:`make_density_value_and_grad` (one ``all_reduce`` per call)."""
+    :func:`make_density_value_and_grad` (one ``all_reduce`` per call).
+
+    With a ``center`` c (k,), the z-dependent part is computed relative to
+    it: ΔF = L (Z − c)ᵀ, E = E_c·e^{ΔF}, and the likelihood's change
+    Σᵢ [ΔFᵢ − E_c,ᵢ·expm1(ΔFᵢ)] joins the loss at c, summed once in
+    float64 (with ``group``, one more ``all_reduce`` here).  The value is
+    the same function, but its rounding no longer grows with |F|: in
+    float32 at 10⁶ cells the rounding of F = L z, amplified by cells where
+    E is in the thousands, moves the potential by ~0.3–0.8 from one z to
+    the next, which freezes NUTS, while ΔF is small near c."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
+    if center is not None:
+        return _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center)
     V, Vdr = V[:, None], Vdr[:, None]
 
     def value_and_grad(Z):
@@ -150,6 +179,31 @@ def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_te
         likelihood, grad_likelihood = _reduce_likelihood(
             torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0), L.T @ (1 - E), group)
         return -(prior + likelihood), Z - grad_likelihood.T
+
+    return value_and_grad
+
+
+def _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center):
+    """The batched potential of :func:`make_density_value_and_grad_batch`
+    around ``center``."""
+    k = center.shape[0]
+    Fc = L @ center + mu
+    Ec = torch.exp(Fc + V)
+    at_center = torch.sum((Fc + Vdr) - Ec + loss_offset_per_term, dtype=torch.float64)
+    if group is not None:
+        dist.all_reduce(at_center, op=dist.ReduceOp.SUM, group=group)
+    c64 = center.double()
+    # the loss at the center: ½|c|² + (k/2) log 2π − its likelihood
+    constant = float(0.5 * torch.dot(c64, c64) + (k / 2) * math.log(2 * math.pi) - at_center)
+    Ec = Ec[:, None]
+
+    def value_and_grad(Z):
+        D = Z - center
+        dF = L @ D.T
+        likelihood, grad_likelihood = _reduce_likelihood(
+            torch.sum(dF - Ec * torch.expm1(dF), dim=0), L.T @ (1 - Ec * torch.exp(dF)), group)
+        # ½|Z|² − ½|c|², without the cancellation
+        return constant + 0.5 * torch.sum(D * (2 * center + D), dim=1) - likelihood, Z - grad_likelihood.T
 
     return value_and_grad
 
@@ -169,39 +223,52 @@ def make_density_loglik_batch(L, nn_distances, d, mu):
     return loglik
 
 
-# rows of L per step of the Hessian diagonal: bounds its (rows, k) temporary
+# rows of L per step of the Hessian and its diagonal: bounds their (rows, k)
+# temporaries
 HESSIAN_CHUNK_ROWS = 4096
 
 
-def density_hessian_diagonal(z, L, nn_distances, d, mu):
+def _curvature(z, L, nn_distances, d, mu, group, out, term):
+    """``out`` plus Σᵢ term(rows, eᵢ) over this rank's rows of L, in
+    :data:`HESSIAN_CHUNK_ROWS` chunks with eᵢ = e^{Lᵢz+μ+Vᵢ}, summed over
+    the ranks of ``group`` in one ``all_reduce``."""
+    V, _ = nearest_neighbors_terms(nn_distances, d)
+    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
+        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
+        out = out + term(rows, e)
+    if group is not None:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def density_hessian_diagonal(z, L, nn_distances, d, mu, group=None):
     """Diagonal of the density loss's Hessian at z in closed form.
 
     The Hessian is I + Lᵀ·diag(e^{Lz+μ+V})·L, so its diagonal is
     1 + Σᵢ eᵢ·Lᵢⱼ².  It accumulates over :data:`HESSIAN_CHUNK_ROWS` rows
     of L at a time: the JAX package gets the same numbers from chunked
-    Hessian-vector products (``mellon_tpu/inference/laplace.py``).
+    Hessian-vector products (``mellon_tpu/inference/laplace.py``).  With
+    a process ``group``, L and nn_distances are this rank's rows of the
+    cells: the ranks' sums are added in one ``all_reduce``, and the prior's
+    1 after it, once.
     """
-    V, _ = nearest_neighbors_terms(nn_distances, d)
-    diag = torch.ones_like(z)
-    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
-        rows = L[start : start + HESSIAN_CHUNK_ROWS]
-        e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
-        diag = diag + e @ (rows * rows)
-    return diag
+    out = _curvature(z, L, nn_distances, d, mu, group, torch.zeros_like(z),
+                     lambda rows, e: e @ (rows * rows))
+    return out + 1
 
 
-def density_hessian(z, L, nn_distances, d, mu):
+def density_hessian(z, L, nn_distances, d, mu, group=None):
     """The density loss's Hessian I + Lᵀ·diag(e^{Lz+μ+V})·L at z, (k, k),
     summed over :data:`HESSIAN_CHUNK_ROWS` rows of L at a time: the matrix
     the JAX package assembles from blocked Hessian-vector products
-    (``mellon_tpu/inference/mcmc.py:_hessian_block``)."""
-    V, _ = nearest_neighbors_terms(nn_distances, d)
-    H = torch.eye(z.shape[0], dtype=z.dtype, device=z.device)
-    for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
-        rows = L[start : start + HESSIAN_CHUNK_ROWS]
-        e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
-        H = H + (rows * e[:, None]).T @ rows
-    return H
+    (``mellon_tpu/inference/mcmc.py:_hessian_block``).  ``group`` as in
+    :func:`density_hessian_diagonal` (one ``all_reduce`` of k² numbers)."""
+    k = z.shape[0]
+    out = _curvature(z, L, nn_distances, d, mu, group, z.new_zeros((k, k)),
+                     lambda rows, e: (rows * e[:, None]).T @ rows)
+    out.diagonal().add_(1)
+    return out
 
 
 def _dimensionality_terms(Z, L, ldist, counts, lgamma_counts, mu_dim, mu_dens):

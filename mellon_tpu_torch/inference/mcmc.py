@@ -23,7 +23,9 @@ cell-sharded (:func:`..parallel.shard_density_model`) on the same mesh.
 with the potential zero-centred (:func:`zero_centered_potential`) and,
 with ``precondition="hessian"``, in the coordinates w = Rᵀ(z − z*) of the
 MAP Hessian H = R Rᵀ, which the density model gives in closed form
-(:func:`..losses.density_hessian`).
+(:func:`..losses.density_hessian`).  :func:`hessian_preconditioner` builds
+that whitening from any batched potential and Hessian, the cell-sharded
+ones of :func:`..parallel.shard_density_model` too.
 """
 
 import logging
@@ -33,8 +35,8 @@ import numpy as np
 import torch
 
 from ..ops.linalg import _cholesky_f64_rescue, _jittered_cholesky
-from ..parallel.mesh import check_sharding, sampling_block
-from .losses import density_hessian, make_density_value_and_grad, make_density_value_and_grad_batch
+from ..parallel.mesh import broadcast_from_first_rank, check_sharding, sampling_block
+from .losses import density_hessian, make_density_value_and_grad_batch, zero_centering_offset
 from .samplers import (
     as_draws,
     da_init,
@@ -242,25 +244,28 @@ def resume_mcmc(
 def zero_centered_potential(z0, L, nn_distances, d, mu):
     """The density potential re-centred to ~0 at ``z0``: returns the
     batched ``value_and_grad`` with ``loss_offset_per_term`` = loss(z0)/n
-    (as a float32 number) and that offset.
+    (as a float32 number) and its z-dependent part computed around z0
+    (``center=z0``), and that offset.
 
     The potential is O(n), and one float32 ulp of it can exceed the energy
     differences of a leapfrog step, which then quantize; dual averaging
     collapses the step size and every tree runs to the depth cap.  The
     offset is subtracted inside the likelihood's reduction, where it keeps
-    the bits that subtracting after the sum would already have lost.  A
-    cell-sharded potential takes the offset of the global operands
+    the bits that subtracting after the sum would already have lost.  The
+    centre does the same for the rounding of F = L z, which at 10⁶ cells
+    in float32 moves the potential by ~0.3–0.8 between neighbouring z
+    (:func:`..losses.make_density_value_and_grad_batch`); the JAX package
+    subtracts the offset alone.  ``shard_density_model(..., center=z0)``
+    gives the same potential with its cells sharded
     (:func:`..parallel.shard_density_model`).
     """
-    n = L.shape[0]
-    v0 = float(make_density_value_and_grad(L, nn_distances, d, mu)(z0)[0])
-    offset = float(np.float32(v0 / n))
+    offset, v0 = zero_centering_offset(z0, L, nn_distances, d, mu)
     logger.info(
         "Zero-centering the sampled potential: loss(z0) = %.6g over %s cells "
         "(offset %.6g/term); reported potentials are relative to z0.",
-        v0, f"{n:,}", offset,
+        v0, f"{L.shape[0]:,}", offset,
     )
-    return make_density_value_and_grad_batch(L, nn_distances, d, mu, offset), offset
+    return make_density_value_and_grad_batch(L, nn_distances, d, mu, offset, center=z0), offset
 
 
 def sample_density_posterior(
@@ -305,8 +310,8 @@ def sample_density_posterior(
         # where the density posterior's spread of scales defeats a diagonal
         # mass.  Needs a (near-)MAP z*, hence the Newton polish.
         hessian = lambda z: density_hessian(z, *args)  # noqa: E731
-        z_map, _, _ = newton_polish(value_and_grad, hessian, z0)
-        T = precondition_transform(hessian_cholesky(hessian(z_map), NEWTON_JITTER))
+        z_map, T, _ = hessian_preconditioner(value_and_grad, hessian, z0,
+                                             chain_sharding=kwargs.get("chain_sharding"))
         result = run_mcmc(preconditioned_potential(value_and_grad, T, z_map),
                           torch.zeros_like(z_map), generator, **run)
         result = result._replace(samples=unwhiten_samples(result.samples, T, z_map))
@@ -326,6 +331,30 @@ def sample_density_posterior(
 # ---------------------------------------------------------------------------
 # Hessian preconditioning: dense-metric NUTS through a potential transform
 # ---------------------------------------------------------------------------
+
+
+def hessian_preconditioner(value_and_grad, hessian, z0, chain_sharding=None):
+    """The whitening of Hessian-preconditioned sampling from a near-MAP z0:
+    the Newton-polished z* (:func:`newton_polish`) and T = R⁻ᵀ with
+    H(z*) + NEWTON_JITTER·I = R Rᵀ.  Returns ``(z_map, T, (‖g‖ before, after))``.
+
+    ``value_and_grad`` and ``hessian`` may be cell-sharded
+    (``loss_func.value_and_grad`` and ``loss_func.hessian`` of
+    :func:`..parallel.shard_density_model`): the polish steers by the
+    potential and ‖g‖, all-reduced and so equal on the ranks of a cells
+    group, which therefore take the same steps.  With the chains split
+    over ranks (``chain_sharding``), the blocks merge dual averaging's and
+    Welford's statistics, so every block must whiten with the same bits,
+    which cells groups on other cards need not compute: z* and T are then
+    rank 0's, sent to every rank in one broadcast.
+    """
+    z_map, gn0, gn1 = newton_polish(value_and_grad, hessian, z0)
+    T = precondition_transform(hessian_cholesky(hessian(z_map)))
+    sharding = check_sharding(chain_sharding, "chain_sharding")
+    if sharding is not None and sharding.size > 1:
+        both = broadcast_from_first_rank(torch.cat([z_map[None], T]))
+        z_map, T = both[0], both[1:]
+    return z_map, T, (gn0, gn1)
 
 
 def autograd_hessian(potential):

@@ -228,6 +228,14 @@ def all_reduce_sum(t, group):
     return t
 
 
+def broadcast_from_first_rank(t):
+    """Rank 0's ``t`` on every rank of the process group (in place); the
+    identity without one."""
+    if dist.is_initialized():
+        dist.broadcast(t, src=0)
+    return t
+
+
 def all_gather(t, group, size):
     """The blocks ``t`` of the ``size`` ranks of ``group``, concatenated
     along the leading axis in rank order."""

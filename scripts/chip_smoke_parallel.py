@@ -28,15 +28,30 @@ split-R-hat <= [nuts]'s bar); and times the cell-sharded log-prob+grad at
 RATE_SHAPE (scripts/scaling_bench.py's shape, from a numpy seed).  With
 two ranks on two cards, PHASE "ranks" times it too.
 
+PHASE "atlas" (four ranks on the 2 x 2 chains x cells mesh: NCCL with one
+card each at chip_smoke's 1M x 50 atlas, or gloo with all four on one card
+at ATLAS_GLOO_CELLS x 50) runs configuration 5's sampler with the cells
+and the chains sharded: every rank fits the same atlas (checksums equal);
+the sharded Hessian and its diagonal within CURVATURE_REL of the whole-L
+ones; the global L freed; hessian_preconditioner on the sharded potential
+and Hessian, z* and T one digest on every rank; chain-sharded NUTS in w at
+chip_smoke.ATLAS_NUTS (split-R-hat over chip_smoke's latent subset, the
+posterior-mean log density against the rank's MAP and, at 1M, against
+[atlas nuts]'s from chip_smoke.ATLAS_POSTERIOR), the milliseconds per
+lockstep leaf and, on NCCL, the cells all_reduce's share of one;
+shard_predict of the posterior-mean predictor at PREDICT_POINTS points
+against the unsharded one.
+
 Each rank writes OUT/<PHASE>_rank<RANK>.json and exits non-zero if a bar
 fails.  Its ``launches`` are the kernel's in its fit and in its
 shard_predict, each counted from 0 (chip_smoke.counted_path): the
-potential, the samplers and the checkpoint read the prepared L and launch
-no kernel, and the kernel's checks against its plain version are not
-counted.
+curvature, the potential, the samplers and the checkpoint read the
+prepared L and launch no kernel, and the kernel's checks against its plain
+version are not counted.
 """
 
 import datetime
+import hashlib
 import json
 import math
 import os
@@ -54,8 +69,13 @@ import mellon_tpu_torch as mt  # noqa: E402
 from mellon_tpu_torch import parallel  # noqa: E402
 from mellon_tpu_torch.inference import mcmc, smc  # noqa: E402
 from mellon_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat  # noqa: E402
+from mellon_tpu_torch.inference.factories import compute_conditional  # noqa: E402
 from mellon_tpu_torch.inference.laplace import compute_laplace_std  # noqa: E402
-from mellon_tpu_torch.inference.losses import make_density_value_and_grad_batch  # noqa: E402
+from mellon_tpu_torch.inference.losses import (  # noqa: E402
+    density_hessian,
+    density_hessian_diagonal,
+    make_density_value_and_grad_batch,
+)
 from mellon_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
 from mellon_tpu_torch.ops import kernels  # noqa: E402
 
@@ -71,6 +91,14 @@ EXACT_SMC = dict(num_particles=256, start="laplace", num_sweeps=1, seed=3)
 RESUME_DRAWS = 50
 CHECKS_POINTS = 3
 TIMEOUT = datetime.timedelta(seconds=60)
+# the atlas phase: four NCCL ranks on four cards at configuration 5's full
+# size, or four gloo ranks on one card at scripts/scaling_bench.py's n (the
+# collectives and the control flow, not the scale); a rank's prepare takes
+# ~30 s at 1M cells, so the group waits longer
+ATLAS_GLOO_CELLS = 100_000
+ATLAS_TIMEOUT = datetime.timedelta(seconds=240)
+CURVATURE_REL = 1e-5
+REDUCE_CALLS = 50
 
 
 class Bars:
@@ -199,21 +227,12 @@ def log_density_corr(a, b):
     return float(np.corrcoef(a.double().cpu().numpy(), b.double().cpu().numpy())[0, 1])
 
 
-class CountedCalls:
-    def __init__(self, fn):
-        self.fn, self.calls = fn, 0
-
-    def __call__(self, Z):
-        self.calls += 1
-        return self.fn(Z)
-
-
 def nuts_checks(bars, est, mesh, reference):
     """Chain-sharded NUTS at [nuts]'s budget and bars, on the potential
     [nuts] samples (the mesh's cells axis has one rank, and a one-rank
     gloo all_reduce of CUDA tensors would add a round trip through the
     host to every leaf); returns the result."""
-    potential = CountedCalls(mcmc.zero_centered_potential(
+    potential = chip_smoke.CountedCalls(mcmc.zero_centered_potential(
         est.pre_transformation, *est._loss_args)[0])
     opts = dict(chip_smoke.NUTS_OPTIONS, max_tree_depth=10, initial_step_size=0.1)
     gen = torch.Generator(device=est.device).manual_seed(0)
@@ -307,9 +326,10 @@ def phase_one(bars, est, x, out):
     cell_sharded_checks(bars, est, mesh, exact=True)
     launches, calls = predict_checks(bars, est, x, mesh, exact=True)
     args = est._loss_args
-    local, offset = mcmc.zero_centered_potential(est.pre_transformation, *args)
+    local, _ = mcmc.zero_centered_potential(est.pre_transformation, *args)
     L, nn, d, mu = args
-    sharded = parallel.shard_density_model(nn, d, mu, L, mesh, offset)[0].value_and_grad
+    sharded = parallel.shard_density_model(nn, d, mu, L, mesh,
+                                           center=est.pre_transformation)[0].value_and_grad
     runs = [mcmc.run_mcmc(vg, est.pre_transformation,
                           torch.Generator(device=est.device).manual_seed(4), **kw, **EXACT_RUN)
             for vg, kw in ((local, {}), (sharded, {"chain_sharding": parallel.chain_sharding(mesh)}))]
@@ -335,6 +355,119 @@ def phase_one(bars, est, x, out):
     return launches, calls
 
 
+def digest(*tensors):
+    """A hash of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_atlas(bars, device, world, backend):
+    """Configuration 5's sampler on the 2 x 2 (chains x cells) mesh: the
+    sharded curvature against the whole-L one, the global L freed, the
+    preconditioner from the sharded potential and Hessian (z* and T the
+    same bits on every rank), chain-sharded preconditioned NUTS in w, the
+    posterior mean against the MAP's (and against [atlas nuts]'s on the
+    same 1M cells), shard_predict of the posterior mean, the cells
+    all_reduce's share of a leaf.  Every rank prepares the same cells (the
+    full 1M x 50 with NCCL, ATLAS_GLOO_CELLS x 50 with gloo).  Returns the
+    (launches, calls) of the fit and of shard_predict."""
+    cells = chip_smoke.ATLAS_CELLS if backend == "nccl" else ATLAS_GLOO_CELLS
+    (est, x), fit_launches, fit_calls = counted("atlas fit", lambda: atlas_fit(device, cells))
+    mesh = parallel.create_mesh(2, world // 2, devices=DEVICES)
+    same_fit_on_every_rank(bars, est)
+    args = est._loss_args
+    L, nn, d, mu = args
+    z0, ld_map = est.pre_transformation, est.log_density_x
+    loss, (nn_block, L_block) = parallel.shard_density_model(nn, d, mu, L, mesh, center=z0)
+    (H, diag), sharded_s = chip_smoke.synced_seconds(
+        lambda: (loss.hessian(z0), loss.hessian_diagonal(z0)))
+    (H0, diag0), whole_s = chip_smoke.synced_seconds(
+        lambda: (density_hessian(z0, *args), density_hessian_diagonal(z0, *args)))
+    errs = {"hessian_rel": rel(H, H0), "diagonal_rel": rel(diag, diag0)}
+    bars.check("atlas sharded curvature", max(errs.values()) <= CURVATURE_REL, bar=CURVATURE_REL,
+               cells=list(x.shape), latents=int(z0.shape[0]), sharded_seconds=sharded_s,
+               whole_seconds=whole_s, reduce_bytes=H.numel() * H.element_size(), **errs)
+    del H, H0, diag, diag0
+    keep = dict(landmarks=est.landmarks, Lp=est.Lp, cov_func=est.cov_func, jitter=est.jitter)
+    allocated = torch.cuda.memory_allocated(est.device)
+    del est, args, L, nn
+    torch.cuda.empty_cache()
+    freed = allocated - torch.cuda.memory_allocated(z0.device)
+
+    sharding = parallel.chain_sharding(mesh)
+    (z_star, T, norms), precond_s = chip_smoke.synced_seconds(lambda: mcmc.hessian_preconditioner(
+        loss.value_and_grad, loss.hessian, z0, chain_sharding=sharding))
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, digest(z_star, T))
+    bars.check("atlas z* and T identical on every rank", len(set(digests)) == 1,
+               newton_grad_norm=list(norms), seconds=precond_s, digests=digests,
+               global_L_bytes_freed=freed)
+
+    potential = chip_smoke.CountedCalls(mcmc.preconditioned_potential(loss.value_and_grad, T, z_star))
+    opts = {k: v for k, v in chip_smoke.ATLAS_NUTS.items() if k != "num_chains"}
+    w0 = z_star.new_zeros((chip_smoke.ATLAS_NUTS["num_chains"], z_star.shape[0]))
+    gen = torch.Generator(device=z0.device).manual_seed(chip_smoke.ATLAS_NUTS_SEED)
+    res, seconds = chip_smoke.synced_seconds(lambda: mcmc.run_mcmc(
+        potential, w0, gen, chain_sharding=sharding, **opts))
+    samples = mcmc.unwhiten_samples(res.samples, T, z_star)
+    chains, draws, k = samples.shape
+    sub = torch.as_tensor(chip_smoke.latent_subset(k), device=samples.device)
+    rhat = float(np.max(split_rhat(samples[:, :, sub])))
+    ess = effective_sample_size(samples[:, :, sub])
+    z_mean = samples.reshape(-1, k).mean(dim=0)
+    ld_post = parallel.cell_sharding(mesh).gather(L_block @ z_mean + mu)
+    corr_map = log_density_corr(ld_post, ld_map)
+    corr_one_card = None
+    if ld_post.shape[0] == chip_smoke.ATLAS_CELLS:
+        corr_one_card = log_density_corr(
+            ld_post, torch.as_tensor(np.load(chip_smoke.ATLAS_POSTERIOR)["log_density"]))
+    # the cells all_reduce's share of a leaf: the sharded potential against
+    # this rank's block alone, on its block of the chains
+    local = make_density_value_and_grad_batch(L_block, nn_block, d, mu, center=z0)
+    Zb = parallel.chain_sharding(mesh).shard(z_star + w0 @ T.T)
+    timed = {name: chip_smoke.synced_seconds(lambda f=f: [f(Zb) for _ in range(REDUCE_CALLS)])[1]
+             for name, f in (("sharded", loss.value_and_grad), ("block", local))}
+    # unreadable where the four ranks share one card and contend for it
+    reduce_ms = (1e3 * (timed["sharded"] - timed["block"]) / REDUCE_CALLS
+                 if backend == "nccl" else None)
+    ok = (chip_smoke.finite(samples, ld_post) and rhat <= chip_smoke.NUTS_MAX_RHAT
+          and corr_map >= chip_smoke.POSTERIOR_MIN_CORR
+          and (corr_one_card is None or corr_one_card >= chip_smoke.POSTERIOR_MIN_CORR))
+    bars.check("atlas nuts", ok, mesh=list(mesh.shape.values()), settings=chip_smoke.ATLAS_NUTS,
+               seconds=seconds, leaves=potential.calls, leaf_ms=1e3 * seconds / potential.calls,
+               step_size=float(res.step_size), mean_accept=float(res.accept_prob.mean()),
+               leapfrogs_per_draw=float(res.num_leapfrog.double().mean()),
+               draws_per_second=chains * draws / seconds, max_rhat=rhat, ess_min=float(ess.min()),
+               corr_with_map=corr_map, corr_with_atlas_nuts=corr_one_card,
+               ms_per_call={n: 1e3 * t / REDUCE_CALLS for n, t in timed.items()},
+               all_reduce_ms_per_leaf=reduce_ms, backend=backend)
+
+    pred = compute_conditional(x, keep["landmarks"], z_mean, None, None, mu, keep["cov_func"],
+                               None, keep["Lp"], sigma=None, jitter=keep["jitter"],
+                               y_is_mean=True)
+    xq = query_points(x, z0.device)
+    predict = parallel.shard_predict(pred, mesh)
+    (got, predict_s), launches, calls = counted(
+        "atlas shard_predict", lambda: chip_smoke.synced_seconds(lambda: predict(xq)))
+    want = pred(xq)
+    err = float((got - want).abs().max()) / float(want.max() - want.min())
+    bars.check("atlas shard_predict", launches > 0 and err <= PREDICT_REL, points=PREDICT_POINTS,
+               launches=launches, seconds=predict_s, err_over_spread=err, bar=PREDICT_REL,
+               shapes=[c[:5] for c in calls])
+    kernel_vs_plain(bars, calls)
+    return fit_launches + launches, fit_calls + calls
+
+
+def atlas_fit(device, n):
+    """Configuration 5's float32 MAP on n cells of chip_smoke's atlas seed."""
+    x = chip_smoke.atlas_cells(n, chip_smoke.ATLAS_DIMS, chip_smoke.ATLAS_SEED)
+    est = mt.DensityEstimator(n_landmarks=chip_smoke.ATLAS_LANDMARKS, device=device)
+    est.fit(x, build_predict=False)
+    return est, est.x
+
+
 DEVICES = None
 
 
@@ -346,19 +479,24 @@ def main():
     torch.cuda.set_device(device)
     DEVICES = [device] * world if backend == "gloo" else [torch.device("cuda", r) for r in range(world)]
     parallel.distributed_initialize(backend=backend, device=device, rank=rank, world_size=world,
-                                    store=dist.FileStore(store, world), timeout=TIMEOUT)
+                                    store=dist.FileStore(store, world),
+                                    timeout=ATLAS_TIMEOUT if phase == "atlas" else TIMEOUT)
     bars = Bars()
-    (est, x), prepare_launches, prepare_calls = counted("fit", lambda: fit(device))
-    if phase == "ranks":
-        launches, calls = phase_ranks(bars, est, x, out, world,
-                                      two_cards=backend == "nccl" and world > 1)
+    if phase == "atlas":
+        launches, calls = phase_atlas(bars, device, world, backend)
     else:
-        launches, calls = phase_one(bars, est, x, out)
+        (est, x), fit_launches, fit_calls = counted("fit", lambda: fit(device))
+        if phase == "ranks":
+            launches, calls = phase_ranks(bars, est, x, out, world,
+                                          two_cards=backend == "nccl" and world > 1)
+        else:
+            launches, calls = phase_one(bars, est, x, out)
+        launches, calls = fit_launches + launches, fit_calls + calls
     result = {
         "phase": phase, "rank": rank, "world": world, "backend": backend, "device": str(device),
         "card": torch.cuda.get_device_name(device), "failed": bars.failed, "stats": bars.stats,
-        "launches": prepare_launches + launches,
-        "calls": [c[:5] for c in prepare_calls + calls],
+        "launches": launches,
+        "calls": [c[:5] for c in calls],
     }
     with open(os.path.join(out, f"{phase}_rank{rank}.json"), "w") as f:
         json.dump(result, f)

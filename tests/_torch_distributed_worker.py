@@ -19,7 +19,7 @@ import torch
 import torch.distributed as dist
 
 import mellon_tpu_torch as mt
-from mellon_tpu_torch.inference import mcmc, samplers, smc
+from mellon_tpu_torch.inference import laplace, mcmc, samplers, smc
 from mellon_tpu_torch.parallel import (
     chain_sharding,
     create_mesh,
@@ -36,6 +36,7 @@ REPLAY_RUN = dict(num_warmup=20, num_samples=10, num_chains=4, max_tree_depth=5)
 MOMENTS_RUN = dict(num_warmup=300, num_samples=400, num_chains=16, max_tree_depth=6)
 HMC_RUN = dict(algorithm="hmc", num_warmup=30, num_samples=20, num_chains=8,
                num_leapfrog_steps=8, target_accept=0.95)
+PRECOND_MOMENTS_RUN = dict(num_warmup=200, num_samples=400, num_chains=16, max_tree_depth=6)
 SMC_RUN = dict(num_particles=2048, num_mutation_steps=5, dtype=torch.float64)
 CHECKPOINT_RUN = dict(num_warmup=40, num_samples=40, num_chains=8, max_tree_depth=5)
 
@@ -86,7 +87,7 @@ def scenario_mesh(data, world):
 def scenario_loss(data, world):
     """The cell-sharded loss at each z of ``Z`` and its batched value and
     gradient on the 1 x world mesh; the potential zero-centred at the MAP
-    (the offset of the global operands) there; the loss on the first
+    (center=, its offset from the global operands) there; the loss on the first
     ``n_odd`` cells (uneven blocks)."""
     L, nn, d, mu = operands(data)
     Z = t64(data["Z"])
@@ -96,8 +97,7 @@ def scenario_loss(data, world):
     values = torch.stack([loss(z) for z in Z])
     batch_values, grads = loss.value_and_grad(Z)
     z_map = t64(data["z_map"])
-    _, offset = mcmc.zero_centered_potential(z_map, L, nn, d, mu)
-    centred, _ = shard_density_model(nn, d, mu, L, mesh, offset)
+    centred, _ = shard_density_model(nn, d, mu, L, mesh, center=z_map)
     centred_at_map, centred_grad = centred.value_and_grad(z_map[None])
     n_odd = int(data["n_odd"])
     odd_loss, _ = shard_density_model(nn[:n_odd], d, mu, L[:n_odd], mesh)
@@ -118,8 +118,18 @@ def scenario_predict(data, world):
 
 def _cell_sharded_potential(data, mesh):
     L, nn, d, mu = operands(data)
-    loss, _ = shard_density_model(nn, d, mu, L, mesh, float(data["offset"]))
+    loss, _ = shard_density_model(nn, d, mu, L, mesh, center=t64(data["z_map"]))
     return loss.value_and_grad
+
+
+def _replaying_jax_steps(fn):
+    """``fn()`` with NUTS counting a doubling's leapfrogs as JAX does."""
+    own_count = samplers._subtree_steps
+    samplers._subtree_steps = lambda leaves, depth: torch.full_like(leaves, 2**depth)
+    try:
+        return fn()
+    finally:
+        samplers._subtree_steps = own_count
 
 
 def scenario_replay(data, world):
@@ -142,16 +152,77 @@ def scenario_replay(data, world):
                 self._keys = jax.random.split(base, (n, total))[:, start:stop]
             return super().momentum(shape, like)
 
-    own_count = samplers._subtree_steps
-    samplers._subtree_steps = lambda leaves, depth: torch.full_like(leaves, 2**depth)
-    try:
-        mesh = mesh_of(world, 2)
-        res = mcmc.run_mcmc(_cell_sharded_potential(data, mesh), t64(data["z_map"]),
-                            BlockReplay(jax.random.PRNGKey(5)), chain_sharding=chain_sharding(mesh),
-                            **REPLAY_RUN)
-    finally:
-        samplers._subtree_steps = own_count
+    mesh = mesh_of(world, 2)
+    res = _replaying_jax_steps(lambda: mcmc.run_mcmc(
+        _cell_sharded_potential(data, mesh), t64(data["z_map"]), BlockReplay(jax.random.PRNGKey(5)),
+        chain_sharding=chain_sharding(mesh), **REPLAY_RUN))
     return np_out(**res._asdict())
+
+
+def scenario_curvature(data, world):
+    """The cell-sharded Hessian and its diagonal at each row of
+    ``curvature_points`` on the (world / 2) x 2 mesh (1 x 2, 2 x 2); the
+    Laplace stds from the sharded diagonal at the MAP and the refusal of
+    laplace.hessian_diagonal; the Newton polish of the sharded potential,
+    zero-centred at the MAP, from the warm start; the preconditioner from
+    the MAP with the chains split (z* and T: rank 0's, broadcast)."""
+    L, nn, d, mu = operands(data)
+    mesh = mesh_of(world, world // 2)
+    z_map = t64(data["z_map"])
+    loss, _ = shard_density_model(nn, d, mu, L, mesh, center=z_map)
+    points = t64(data["curvature_points"])
+    try:
+        laplace.hessian_diagonal(loss, z_map)
+        error = ""
+    except RuntimeError as e:
+        error = str(e)
+    z_polish, gn0, gn1 = mcmc.newton_polish(loss.value_and_grad, loss.hessian, t64(data["z_init"]))
+    z_star, T, _ = mcmc.hessian_preconditioner(loss.value_and_grad, loss.hessian, z_map,
+                                               chain_sharding=chain_sharding(mesh))
+    return np_out(hessian=torch.stack([loss.hessian(z) for z in points]),
+                  diagonal=torch.stack([loss.hessian_diagonal(z) for z in points]),
+                  laplace_std=laplace.compute_laplace_std(loss.hessian_diagonal(z_map)),
+                  error=error, z_polish=z_polish, grad_norms=[gn0, gn1], z_star=z_star, T=T)
+
+
+def _preconditioned_run(data, mesh, draws, sharding, rows, **run):
+    """Hessian-preconditioned NUTS on the cell-sharded potential of
+    ``mesh``, centred at the MAP as zero_centered_potential centres it, from
+    w = 0 (one row, jittered per chain, or ``rows`` rows),
+    the whitening taken at the MAP: the draws unwhitened to z."""
+    L, nn, d, mu = operands(data)
+    z0 = t64(data["z_map"])
+    loss, _ = shard_density_model(nn, d, mu, L, mesh, center=z0)
+    z_map, T, _ = mcmc.hessian_preconditioner(loss.value_and_grad, loss.hessian, z0,
+                                              chain_sharding=sharding)
+    w0 = torch.zeros_like(z_map)
+    res = mcmc.run_mcmc(mcmc.preconditioned_potential(loss.value_and_grad, T, z_map),
+                        w0.repeat(rows, 1) if rows else w0, draws, chain_sharding=sharding, **run)
+    return res._replace(samples=mcmc.unwhiten_samples(res.samples, T, z_map))
+
+
+def scenario_precond_replay(data, world):
+    """Hessian-preconditioned NUTS on the 1 x world mesh (the cells sharded,
+    the chains not) on mellon_tpu's draws of key 0, counting steps as the
+    JAX package does: its sample_density_posterior(precondition="hessian")
+    flow on the sharded potential."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    from _torch_parity import JaxReplayDraws
+
+    res = _replaying_jax_steps(lambda: _preconditioned_run(
+        data, mesh_of(world, 1), JaxReplayDraws(jax.random.PRNGKey(0)), None, 0, **REPLAY_RUN))
+    return np_out(**res._asdict())
+
+
+def scenario_precond_moments(data, world):
+    """Chain-sharded preconditioned NUTS on the 2 x (world / 2) mesh from
+    torch's generator (seed 7), every chain starting at w = 0."""
+    mesh = mesh_of(world, 2)
+    res = _preconditioned_run(data, mesh, torch.Generator().manual_seed(7), chain_sharding(mesh),
+                              PRECOND_MOMENTS_RUN["num_chains"], **PRECOND_MOMENTS_RUN)
+    return np_out(samples=res.samples)
 
 
 def scenario_moments(data, world):

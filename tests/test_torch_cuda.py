@@ -567,8 +567,23 @@ def test_two_ranks_on_two_cards(cuda, tmp_path):
     and the kernel on cuda:1 against its plain version (1e-5)."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two NVIDIA GPUs (NCCL takes one rank per card)")
+    _run_two_ranks("two_cards", tmp_path)
+
+
+def test_sharded_hessian_on_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 (this file run as a rank; NCCL takes one
+    rank per card): the cell-sharded Hessian and its diagonal on the 1 x 2
+    mesh against the whole-L density_hessian and
+    density_hessian_diagonal, float32 (1e-5 relative) and float64
+    (1e-10), and hessian_preconditioner's z* and T, broadcast from rank 0
+    with the chains split, the same bits on both ranks."""
+    _run_two_ranks("gloo_hessian", tmp_path)
+
+
+def _run_two_ranks(scenario, tmp_path):
+    """This file as two ranks of ``scenario``; each must exit 0."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), os.environ.get("PYTHONPATH", "")]))
-    procs = [subprocess.Popen([sys.executable, __file__, str(rank), str(tmp_path / "store")],
+    procs = [subprocess.Popen([sys.executable, __file__, scenario, str(rank), str(tmp_path / "store")],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
              for rank in range(2)]
     try:
@@ -612,5 +627,43 @@ def _two_card_rank(rank, store):
     torch.distributed.destroy_process_group()
 
 
+def _gloo_hessian_rank(rank, store):
+    """One rank of test_sharded_hessian_on_two_gloo_ranks_on_one_card."""
+    import hashlib
+
+    from mellon_tpu_torch import parallel
+    from mellon_tpu_torch.inference.losses import density_hessian, density_hessian_diagonal
+    from mellon_tpu_torch.inference.mcmc import hessian_preconditioner, zero_centered_potential
+
+    device = torch.device("cuda", 0)
+    parallel.distributed_initialize(backend="gloo", device=device, rank=rank, world_size=2,
+                                    store=torch.distributed.FileStore(store, 2),
+                                    timeout=datetime.timedelta(seconds=60))
+    x = _clustered(3001, 10, seed=77)
+    est = mellon_tpu_torch.DensityEstimator(n_landmarks=300, device=device).fit(x)
+    z = est.pre_transformation
+    for dtype, bar in ((torch.float32, 1e-5), (torch.float64, 1e-10)):
+        L, nn = est.L.to(dtype), est.nn_distances.to(dtype)
+        zt = z.to(dtype)
+        mesh = parallel.create_mesh(1, 2, devices=[device, device])
+        loss, _ = parallel.shard_density_model(nn, est.d, est.mu, L, mesh)
+        H, H0 = loss.hessian(zt), density_hessian(zt, L, nn, est.d, est.mu)
+        diag = loss.hessian_diagonal(zt)
+        diag0 = density_hessian_diagonal(zt, L, nn, est.d, est.mu)
+        assert float((H - H0).abs().max() / H0.abs().max()) <= bar
+        assert float((diag - diag0).abs().max() / diag0.abs().max()) <= bar
+    chains = parallel.create_mesh(2, 1, devices=[device, device])
+    vg, _ = zero_centered_potential(z, *est._loss_args)
+    hessian = lambda v: density_hessian(v, *est._loss_args)  # noqa: E731
+    z_star, T, _ = hessian_preconditioner(vg, hessian, z,
+                                          chain_sharding=parallel.chain_sharding(chains))
+    digest = hashlib.sha256(z_star.cpu().numpy().tobytes() + T.cpu().numpy().tobytes()).hexdigest()
+    digests = [None, None]
+    torch.distributed.all_gather_object(digests, digest)
+    assert digests[0] == digests[1]
+    torch.distributed.destroy_process_group()
+
+
 if __name__ == "__main__":
-    _two_card_rank(int(sys.argv[1]), sys.argv[2])
+    {"two_cards": _two_card_rank, "gloo_hessian": _gloo_hessian_rank}[sys.argv[1]](
+        int(sys.argv[2]), sys.argv[3])

@@ -1,5 +1,7 @@
 """mellon_tpu_torch.parallel against mellon_tpu.parallel: the mesh, the
-cell-sharded density potential, shard_predict, chain-sharded NUTS and HMC,
+cell-sharded density potential and its curvature (the Hessian, its
+diagonal, the Newton polish, the Laplace stds), shard_predict, chain-sharded
+NUTS and HMC, Hessian-preconditioned NUTS on the sharded potential,
 particle-sharded SMC and distributed checkpoints.
 
 The port's ranks are gloo processes on the CPU in float64
@@ -23,6 +25,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 from _torch_parity import CPU64, clustered, t64, to_np
 import mellon_tpu
 import mellon_tpu_torch
+from mellon_tpu.inference import laplace as jax_laplace
 from mellon_tpu.inference import mcmc as jax_mcmc
 from mellon_tpu.inference.losses import density_loss as jax_density_loss
 from mellon_tpu.parallel import mesh as jax_mesh
@@ -31,13 +34,20 @@ from mellon_tpu.parallel import sharded_loss_from_estimator as jax_sharded_loss
 from mellon_tpu_torch import state_from_jax
 from mellon_tpu_torch.inference import mcmc, smc
 from mellon_tpu_torch.inference.diagnostics import summarize
-from mellon_tpu_torch.inference.losses import density_value_and_grad
+from mellon_tpu_torch.inference.laplace import compute_laplace_std
+from mellon_tpu_torch.inference.losses import (
+    SHARDED_DERIVATIVES,
+    density_hessian,
+    density_hessian_diagonal,
+    density_value_and_grad,
+)
 from mellon_tpu_torch.parallel.mesh import mesh_shape
 
 import _torch_distributed_worker as worker
 
 WORLDS = (2, 4)
-SCENARIOS = "mesh,loss,predict,hmc,smc,checkpoint,moments,replay"
+SCENARIOS = ("mesh,loss,curvature,predict,hmc,smc,checkpoint,moments,precond_moments,replay,"
+             "precond_replay")
 RANK_TIMEOUT_S = 300
 N_ODD = 299
 
@@ -82,17 +92,52 @@ def _wait(procs):
         assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{logs[rank][-4000:]}"
 
 
+def _jax_sharded(args, n_chains, n_cells):
+    """The JAX package's zero-centred potential operands with L and the
+    nearest-neighbour distances sharded over the cells of an n_chains x
+    n_cells virtual mesh: (mesh, operands)."""
+    mesh = jax_mesh.create_mesh(n_chains, n_cells, devices=jax.devices()[:n_chains * n_cells])
+    L, nn, d, mu, offset = args
+    return mesh, (jax.device_put(L, NamedSharding(mesh, P(jax_mesh.CELL_AXIS, None))),
+                  jax.device_put(nn, NamedSharding(mesh, P(jax_mesh.CELL_AXIS))), d, mu, offset)
+
+
 def _jax_replay(jest, args):
     """mellon_tpu's run_mcmc with the chains and the cells sharded on the
     2 x 4 virtual mesh, key 5."""
-    mesh = jax_mesh.create_mesh(n_chains=2, n_cells=4)
-    L, nn, d, mu, offset = args
-    sharded = (jax.device_put(L, NamedSharding(mesh, P(jax_mesh.CELL_AXIS, None))),
-               jax.device_put(nn, NamedSharding(mesh, P(jax_mesh.CELL_AXIS))), d, mu, offset)
+    mesh, sharded = _jax_sharded(args, 2, 4)
     return jax_mcmc.run_mcmc(jax_density_loss, jest.pre_transformation, jax.random.PRNGKey(5),
                              potential_args=sharded,
                              chain_sharding=NamedSharding(mesh, P(jax_mesh.CHAIN_AXIS, None)),
                              **worker.REPLAY_RUN)
+
+
+def _jax_precond_replay(jest, args, world):
+    """mellon_tpu's sample_density_posterior(precondition="hessian") flow on
+    the potential with its cells sharded over the 1 x world virtual mesh:
+    the Newton polish from the MAP, hessian_cholesky, T = R⁻ᵀ, run_mcmc in
+    w from 0 on key 0, the draws unwhitened."""
+    _, sharded = _jax_sharded(args, 1, world)
+    z, _, _ = jax_mcmc.newton_polish(jax_density_loss, jest.pre_transformation, sharded)
+    T = jax_mcmc.precondition_transform(
+        jax_mcmc.hessian_cholesky(jax_density_loss, z, jnp.asarray(1e-6, z.dtype), *sharded))
+    res = jax_mcmc.run_mcmc(jax_mcmc.preconditioned_potential(jax_density_loss), jnp.zeros_like(z),
+                            jax.random.PRNGKey(0), potential_args=(T, z) + sharded,
+                            **worker.REPLAY_RUN)
+    return res._replace(samples=jax_mcmc.unwhiten_samples(res.samples, T, z))
+
+
+def _precond_moments_reference(est):
+    """The unsharded preconditioned run of the worker's precond_moments
+    scenario: the whitening at the MAP, 16 chains from w = 0, seed 7."""
+    z0 = est.pre_transformation
+    vg, _ = mcmc.zero_centered_potential(z0, *est._loss_args)
+    z_map, T, _ = mcmc.hessian_preconditioner(vg, lambda z: density_hessian(z, *est._loss_args), z0)
+    run = worker.PRECOND_MOMENTS_RUN
+    w0 = torch.zeros(run["num_chains"], z_map.shape[0], dtype=z_map.dtype)
+    res = mcmc.run_mcmc(mcmc.preconditioned_potential(vg, T, z_map), w0,
+                        torch.Generator().manual_seed(7), **run)
+    return mcmc.unwhiten_samples(res.samples, T, z_map)
 
 
 @pytest.fixture(scope="module")
@@ -106,8 +151,10 @@ def runs(fitted, tmp_path_factory):
                                                    jest._loss_args)
     rng = np.random.RandomState(90)
     data = dict(L=to_np(L), nn=to_np(nn), d=float(d), mu=float(mu),
-                z_map=np.asarray(jest.pre_transformation), offset=float(jax_args[-1]),
+                z_map=np.asarray(jest.pre_transformation),
                 Z=np.asarray(jest.pre_transformation) + 0.3 * rng.randn(3, 40), n_odd=N_ODD,
+                z_init=np.asarray(jest.initial_value),
+                curvature_points=np.asarray(jest.pre_transformation) + [[0.0], [0.3]] * rng.randn(2, 40),
                 Xq=clustered(63, 3, seed=91), smc_m=np.asarray([1.0, -0.5]), smc_s2=0.5)
     inputs = tmp / "inputs.npz"
     np.savez(inputs, **data)
@@ -118,12 +165,14 @@ def runs(fitted, tmp_path_factory):
     vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
     ref = {
         "replay": _jax_replay(jest, jax_args),
+        "precond_replay": {world: _jax_precond_replay(jest, jax_args, world) for world in WORLDS},
+        "precond_moments": _precond_moments_reference(est),
         "hmc": mcmc.run_mcmc(vg, est.pre_transformation, torch.Generator().manual_seed(8),
                              **worker.HMC_RUN),
         "smc": smc.run_smc(worker.gaussian_loglik(data["smc_m"], data["smc_s2"]), 2,
                            torch.Generator().manual_seed(4), **worker.SMC_RUN),
         "moments": mcmc.run_mcmc(
-            mcmc.make_density_value_and_grad_batch(L, nn, d, mu, data["offset"]),
+            vg,
             est.pre_transformation.repeat(worker.MOMENTS_RUN["num_chains"], 1),
             torch.Generator().manual_seed(7), **worker.MOMENTS_RUN),
     }
@@ -133,7 +182,7 @@ def runs(fitted, tmp_path_factory):
         out = tmp / f"out{world}"
         ranks[world] = {name: [dict(np.load(out / f"{name}_rank{r}.npz")) for r in range(world)]
                         for name in SCENARIOS.split(",")}
-    return {"ranks": ranks, "ref": ref, "data": data, "tmp": tmp}
+    return {"ranks": ranks, "ref": ref, "data": data, "tmp": tmp, "jax_args": jax_args}
 
 
 # a rank's own counts of its block's leaf loop
@@ -217,8 +266,9 @@ def test_cell_sharded_loss_matches_jax_and_local(runs, fitted, world):
     """The cell-sharded loss and gradient on the 1 x world mesh against
     mellon_tpu's sharded_loss_from_estimator on 1 x world virtual devices
     and against the port's local loss (1e-10 relative, tests/test_mcmc.py's
-    bar); the potential zero-centred at the MAP, sharded with the offset of
-    the global operands, is the local zero-centred one there; uneven cell
+    bar); the potential zero-centred at the MAP, sharded (center=, the
+    offset taken from the global operands), is the local zero-centred one
+    there; uneven cell
     blocks (299 cells) agree with the local loss too."""
     jest, est = fitted
     out = _same_on_every_rank(runs["ranks"][world]["loss"])
@@ -243,6 +293,71 @@ def test_cell_sharded_loss_matches_jax_and_local(runs, fitted, world):
     # the centred value is the small residue of an O(n) loss: held to 1e-10 of loss(z0)
     np.testing.assert_allclose(out["centred_at_map"], to_np(v_map), rtol=0, atol=1e-10 * abs(v0))
     np.testing.assert_allclose(out["centred_grad"], to_np(g_map), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_curvature_matches_jax_and_local(runs, fitted, world):
+    """loss_func.hessian and loss_func.hessian_diagonal on 1 x 2 and 2 x 2
+    (each cells group's all_reduce) at the MAP and at a point away from
+    it: the JAX package's hessian_cholesky on the cells sharded over the
+    same virtual mesh (R Rᵀ − jitter·I) and its laplace.hessian_diagonal
+    there, and the port's whole-L density_hessian and
+    density_hessian_diagonal, all within 1e-10."""
+    _, est = fitted
+    out = _same_on_every_rank(runs["ranks"][world]["curvature"])
+    _, sharded = _jax_sharded(runs["jax_args"], world // 2, 2)
+    jitter = 1e-6
+    for i, z in enumerate(runs["data"]["curvature_points"]):
+        R = np.asarray(jax_mcmc.hessian_cholesky(jax_density_loss, jnp.asarray(z),
+                                                 jnp.asarray(jitter), *sharded))
+        H_jax = R @ R.T - jitter * np.eye(len(z))
+        diag_jax = np.asarray(jax_laplace.hessian_diagonal(jax_density_loss, jnp.asarray(z),
+                                                           loss_args=sharded))
+        H_local = to_np(density_hessian(t64(z), *est._loss_args))
+        diag_local = to_np(density_hessian_diagonal(t64(z), *est._loss_args))
+        for want in (H_jax, H_local):
+            np.testing.assert_allclose(out["hessian"][i], want, rtol=1e-10, atol=1e-10)
+        for want in (diag_jax, diag_local):
+            np.testing.assert_allclose(out["diagonal"][i], want, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_newton_polish_and_preconditioner(runs, fitted, world):
+    """newton_polish of the zero-centred sharded potential with the sharded
+    Hessian (1 x 2, 2 x 2) from the warm start: the JAX package's
+    newton_polish on the sharded operands within 1e-8 (z, ‖g‖ before and
+    after).  hessian_preconditioner from the MAP with the chains split:
+    z* and T equal on every rank and within 1e-8 of the whole-L ones."""
+    jest, est = fitted
+    out = _same_on_every_rank(runs["ranks"][world]["curvature"])
+    _, sharded = _jax_sharded(runs["jax_args"], world // 2, 2)
+    z_j, gn0_j, gn1_j = jax_mcmc.newton_polish(jax_density_loss, jest.initial_value, sharded)
+    np.testing.assert_allclose(out["z_polish"], np.asarray(z_j), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(out["grad_norms"], [gn0_j, gn1_j], rtol=1e-8, atol=1e-8)
+    assert out["grad_norms"][1] < 1e-6 * out["grad_norms"][0]
+    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    z_star, T, _ = mcmc.hessian_preconditioner(
+        vg, lambda z: density_hessian(z, *est._loss_args), est.pre_transformation)
+    np.testing.assert_allclose(out["z_star"], to_np(z_star), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(out["T"], to_np(T), rtol=1e-8, atol=1e-10)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_laplace_hessian_diagonal_refuses_a_sharded_loss(runs, fitted, world):
+    """laplace.hessian_diagonal (torch.func) of a cell-sharded loss raises
+    losses.SHARDED_DERIVATIVES instead of returning the rank's part of the
+    diagonal; the sharded closed form gives the Laplace stds of the whole
+    model (the port's and the JAX package's compute_laplace_std on the
+    sharded operands, 1e-10)."""
+    jest, est = fitted
+    out = _same_on_every_rank(runs["ranks"][world]["curvature"])
+    assert str(out["error"]) == SHARDED_DERIVATIVES
+    want = compute_laplace_std(density_hessian_diagonal(est.pre_transformation, *est._loss_args))
+    np.testing.assert_allclose(out["laplace_std"], to_np(want), rtol=1e-10)
+    _, sharded = _jax_sharded(runs["jax_args"], world // 2, 2)
+    want_jax = jax_laplace.compute_laplace_std(jax_density_loss, jest.pre_transformation,
+                                               loss_args=sharded)
+    np.testing.assert_allclose(out["laplace_std"], np.asarray(want_jax), rtol=1e-10)
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -301,6 +416,43 @@ def test_chain_sharded_nuts_moments_and_distinct_streams(runs, world):
     assert ratio.min() > 0.85 and ratio.max() < 1.18
     half = samples.shape[0] // 2
     assert not np.any(np.all(samples[:half, :5] == samples[half:, :5], axis=(1, 2)))
+    assert np.all(np.abs(samples[:half, 0] - samples[half:, 0]).max(axis=1) > 0)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_cell_sharded_preconditioned_nuts_replays_jax(runs, world):
+    """Hessian-preconditioned NUTS on 1 x 2 and 1 x 4 (the cells sharded,
+    the chains whole), the whitening built by hessian_preconditioner from
+    the sharded potential and Hessian, on the JAX package's draws: its
+    sample_density_posterior(precondition="hessian") flow on the cells
+    sharded over the same virtual mesh, to 1e-8 (unwhitened samples,
+    potentials, acceptance, step size, mass); steps and divergences
+    exactly."""
+    out = _same_on_every_rank(runs["ranks"][world]["precond_replay"])
+    want = runs["ref"]["precond_replay"][world]
+    for name in ("samples", "potential", "accept_prob", "step_size", "inv_mass_diag"):
+        np.testing.assert_allclose(out[name], np.asarray(getattr(want, name)), rtol=1e-8,
+                                   atol=1e-8, err_msg=name)
+    np.testing.assert_array_equal(out["num_leapfrog"], np.asarray(want.num_leapfrog))
+    np.testing.assert_array_equal(out["diverging"], np.asarray(want.diverging))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_chain_sharded_preconditioned_nuts_moments(runs, world):
+    """Chain-sharded preconditioned NUTS on 2 x 1 and 2 x 2 (16 chains from
+    w = 0, seed 7, z* and T broadcast from rank 0) against the unsharded
+    preconditioned run of the same seed, with the bars of
+    test_chain_sharded_nuts_moments_and_distinct_streams: split-R-hat <
+    1.05, means within 0.08, std ratio in (0.85, 1.18); the two chain
+    blocks differ."""
+    samples = _same_on_every_rank(runs["ranks"][world]["precond_moments"])["samples"]
+    local = summarize(runs["ref"]["precond_moments"])
+    sharded = summarize(torch.as_tensor(samples))
+    assert np.all(to_np(sharded["rhat"]) < 1.05) and np.all(to_np(local["rhat"]) < 1.05)
+    np.testing.assert_allclose(to_np(sharded["mean"]), to_np(local["mean"]), atol=0.08)
+    ratio = to_np(sharded["std"]) / to_np(local["std"])
+    assert ratio.min() > 0.85 and ratio.max() < 1.18
+    half = samples.shape[0] // 2
     assert np.all(np.abs(samples[:half, 0] - samples[half:, 0]).max(axis=1) > 0)
 
 
