@@ -6,7 +6,7 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3, 5-8 and 11-26) runs with the kernel's launch count set to 0
+Each path (3, 5-8, 11-26, 28 and 29) runs with the kernel's launch count set to 0
 just before it and read just after, and fails if the kernel was not
 launched; the operands of every kernel call the covariance module makes on
 these paths are kept for phase 4.  Path 27's ranks are processes of their
@@ -196,7 +196,27 @@ any rank launched the kernel no time.
    chain-sharded preconditioned NUTS at ATLAS_NUTS (split-R-hat, the
    posterior-mean log density against the MAP's and, at 1M, against
    24's), shard_predict of the posterior mean at PREDICT_BATCH points.
-   The ranks' kernel calls join phase 4's.
+   The ranks' kernel calls join phase 4's.  The atlas phase also saves
+   the chain-sharded chains (rank 0 writes), reloads them on every rank
+   and resumes ATLAS_RESUME_DRAWS transitions (finite; the saved chains
+   continued by them within split-R-hat <= NUTS_MAX_RHAT);
+28. ivf (right after 24, on its float32 fit's cells): nn_distances(x,
+   method="ivf") (8 probes) timed in three synchronised parts (the coarse
+   quantizer, the assignment and table, the search), with the cell count,
+   the table's cap and the points it truncates: every distance finite,
+   > 0 and not below 24's exact 1-NN distance, the card's search equal to
+   the CPU's on the same quantizer and table on IVF_CPU_ROWS rows, its
+   share within IVF_REL of exact >= IVF_DEFAULT_MIN_EQUAL; knn_ivf at IVF_HELD_PROBES
+   probes held to a share >= IVF_MIN_EQUAL; a float32 DensityEstimator on
+   each's distances and 24's kept landmarks, its log density against 24's
+   (the held one with the certificate's bars, the default one with corr
+   >= IVF_DEFAULT_MIN_CORR and the certificate's RMSE) and its prepare seconds
+   beside 24's; knn_distances(k=IVF_SUB_K, method="ivf") on the 50,000 x
+   50 subscale cells with a recall > IVF_MIN_RECALL against the exact
+   search; knn(x, 3) of IVF_QUERY atlas rows in column strips of
+   IVF_COL_BLOCK equal to one strip, both timed;
+29. tutorials (after 26): the four examples/*_tutorial_torch.py run to
+   their end through runpy on the card, seconds for each.
 
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
 elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
@@ -384,6 +404,30 @@ ATLAS_POSTERIOR = os.path.join(ROOT, "build", "atlas_nuts_posterior_mean.npz")
 # another rounding path than L = C Lp^-T; at the MAP the H100 read 3.7e-3
 # (PERF.md), where the bench shape holds 1e-3
 ATLAS_PREDICT_REL = 1e-2
+# [ivf]: the IVF 1-NN on the atlas cells against the float32 fit's exact
+# distances, with the 1-NN bar of tests/test_ops.py:261 (a share of at
+# least IVF_MIN_EQUAL within IVF_REL relative) at IVF_HELD_PROBES probes:
+# at the default 8 the reference algorithm reaches 0.9467 on these 1M x 50
+# cells on the H100 (the JAX package reads the port's share at 200,000
+# cells on the CPU; PERF.md), 0.9926 at 16 and 0.99975 at 32.  The
+# subscale recall over IVF_SUB_K columns, and the column-streamed exact
+# search on IVF_QUERY atlas rows in strips of IVF_COL_BLOCK against one
+# strip
+IVF_MIN_EQUAL = 0.999
+# the default 8 probes, held below the reference's 1-NN bar at what the
+# H100 read twice (a share of 0.94672, the refit's corr 0.998719 and
+# RMSE/spread 0.00897; PERF.md) less a margin, the RMSE at the
+# certificate's bar
+IVF_DEFAULT_MIN_EQUAL = 0.94
+IVF_DEFAULT_MIN_CORR = 0.998
+IVF_HELD_PROBES = 32
+IVF_REL = 1e-6
+IVF_SUB_K = 3
+IVF_MIN_RECALL = 0.97
+IVF_QUERY = 8192
+IVF_CPU_ROWS = 1024
+IVF_COL_BLOCK = 2**18
+TUTORIALS = ("basic", "gene_change_analysis", "time_series", "trajectory_trends")
 # the dimensionality model's NUTS at [nuts]'s budget; the checkpoint
 # resumes its chains for CHECKPOINT_DRAWS draws
 DIM_NUTS_OPTIONS = NUTS_OPTIONS
@@ -1677,6 +1721,140 @@ def atlas_path(mt):
     return stats, big, est
 
 
+def ivf_path(mt, est, exact_prepare_s):
+    """[ivf] on the atlas cells of ``est`` (the float32 fit).  The default
+    search, nn_distances(method="ivf"), timed in three synchronised parts
+    (quantizer, assignment and table, search): finite and > 0, never below
+    the fit's exact 1-NN distances (it searches a subset), the card's
+    search equal to the CPU's on the same quantizer and table for
+    IVF_CPU_ROWS rows, its share within IVF_REL of exact >=
+    IVF_DEFAULT_MIN_EQUAL.  The same search at IVF_HELD_PROBES probes held
+    to a share >= IVF_MIN_EQUAL.  A float32 fit on each's distances and
+    ``est``'s landmarks against ``est``'s log density: the held one with
+    the certificate's bars, the default one with corr >=
+    IVF_DEFAULT_MIN_CORR and RMSE/spread <= CERT_MAX_RMSE.  The
+    subscale recall over IVF_SUB_K columns; the column-streamed exact
+    search against one strip.  Returns the stats."""
+    import numpy as np
+    import torch
+
+    from mellon_tpu_torch.models.density import PREPARED_ATTRIBUTES
+    from mellon_tpu_torch.ops import neighbors
+
+    marks, helpers = {}, (neighbors._ivf_quantizer, neighbors._ivf_table)
+
+    def marked(name, fn):
+        def wrapped(*args):
+            result = fn(*args)
+            torch.cuda.synchronize()
+            marks[name] = (time.perf_counter(), result)
+            return result
+        return wrapped
+
+    neighbors._ivf_quantizer = marked("quantizer", helpers[0])
+    neighbors._ivf_table = marked("table", helpers[1])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ivf = mt.ops.nn_distances(est.x, method="ivf")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    finally:
+        neighbors._ivf_quantizer, neighbors._ivf_table = helpers
+    (t1, centroids), (t2, (table, cap, truncated)) = marks["quantizer"], marks["table"]
+    exact = est.nn_distances
+    probes = 8  # knn_ivf's default, which nn_distances(method="ivf") takes
+
+    def share(got, want):
+        return float(((got - want).abs() <= IVF_REL * want).double().mean())
+
+    def sound(d):
+        return bool(torch.isfinite(d).all() and (d > 0).all() and (d >= exact * (1 - IVF_REL)).all())
+
+    # the card's search against the CPU's on the same quantizer and table
+    # (the CPU's is held to the JAX package's by tests/test_torch_neighbors.py)
+    x_cpu = est.x[:IVF_CPU_ROWS].cpu()
+    x_padded = torch.cat([est.x.cpu(), x_cpu.new_full((1, x_cpu.shape[1]), float("inf"))])
+    cpu = torch.cat([neighbors._ivf_search(x_cpu[s : s + 512], centroids.cpu(), table.cpu(),
+                                           x_padded, 1, probes)[0][:, 1]
+                     for s in range(0, IVF_CPU_ROWS, 512)])
+    (held, _), held_s = synced_seconds(lambda: neighbors.knn_ivf(est.x, 1, n_probe=IVF_HELD_PROBES))
+    held = held[:, 0]
+    stats = {"cells": list(est.x.shape), "n_clusters": int(table.shape[0]), "cap": cap,
+             "truncated": truncated,
+             "default": {"n_probe": probes, "equal_share": share(ivf, exact), "sound": sound(ivf),
+                         "seconds": {"quantizer": t1 - t0, "assign_table": t2 - t1,
+                                     "search": t3 - t2, "total": t3 - t0},
+                         "cpu_rows": IVF_CPU_ROWS,
+                         "cpu_equal_share": share(ivf[:IVF_CPU_ROWS].cpu(), cpu)},
+             "held": {"n_probe": IVF_HELD_PROBES, "equal_share": share(held, exact),
+                      "sound": sound(held), "seconds": held_s}}
+
+    for name, nn in (("default", ivf), ("held", held)):
+        fit = mt.DensityEstimator(nn_distances=nn, landmarks=est.landmarks, device=DEVICE)
+        stages = staged_fit(fit, est.x, PREPARED_ATTRIBUTES)
+        corr, rmse = agreement(fit.log_density_x, est.log_density_x)
+        prepare_s = sum(v for k, v in stages.items() if k in PREPARED_ATTRIBUTES)
+        search_s = t3 - t0 if name == "default" else held_s
+        stats[name]["fit"] = {"ls": fit.ls, "exact_ls": est.ls, "prepare_seconds": prepare_s,
+                              "prepare_with_ivf_seconds": prepare_s + search_s,
+                              "exact_prepare_seconds": exact_prepare_s,
+                              "lbfgs_seconds": stages["lbfgs"], "corr": corr, "rmse": rmse,
+                              "finite": finite(fit.log_density_x)}
+        del fit
+
+    sub = np.load(ATLAS_SUB)
+    x_sub = torch.as_tensor(np.asarray(sub["x"], dtype=np.float32), device=DEVICE)
+    sub_exact, exact_s = synced_seconds(lambda: mt.ops.knn_distances(x_sub, IVF_SUB_K))
+    sub_ivf, ivf_s = synced_seconds(
+        lambda: mt.ops.knn_distances(x_sub, IVF_SUB_K, method="ivf"))
+    recall = share(sub_ivf, sub_exact)
+    stats["subscale"] = {"cells": list(x_sub.shape), "k": IVF_SUB_K, "recall": recall,
+                         "ivf_seconds": ivf_s, "exact_seconds": exact_s}
+
+    query = est.x[:IVF_QUERY]
+    (d1, i1), one_s = synced_seconds(lambda: mt.ops.knn(est.x, 3, query=query))
+    (d2, i2), strips_s = synced_seconds(
+        lambda: mt.ops.knn(est.x, 3, query=query, col_block=IVF_COL_BLOCK))
+    streamed = bool(torch.equal(i1, i2) and torch.equal(d1, d2))
+    stats["streamed"] = {"query": IVF_QUERY, "col_block": IVF_COL_BLOCK, "equal": streamed,
+                         "one_strip_seconds": one_s, "strips_seconds": strips_s}
+    log("[ivf] " + json.dumps(stats))
+    log(f"[ivf] bars: at 8 probes (the default) and {IVF_HELD_PROBES} every distance finite, "
+        f"> 0 and not below exact, the refits finite; at 8 the card's search equal to the "
+        f"CPU's on >= {IVF_MIN_EQUAL} of {IVF_CPU_ROWS} rows, a share >= "
+        f"{IVF_DEFAULT_MIN_EQUAL} within {IVF_REL} relative of exact and its refit corr >= "
+        f"{IVF_DEFAULT_MIN_CORR}, RMSE/spread <= {CERT_MAX_RMSE}; at {IVF_HELD_PROBES} a share >= "
+        f"{IVF_MIN_EQUAL} within {IVF_REL} relative of exact and its refit corr >= "
+        f"{CERT_MIN_CORR}, RMSE/spread <= {CERT_MAX_RMSE}; subscale recall > {IVF_MIN_RECALL}; "
+        f"streamed strips equal to one")
+    default, held = stats["default"], stats["held"]
+    ok = (default["sound"] and held["sound"] and default["fit"]["finite"]
+          and default["cpu_equal_share"] >= IVF_MIN_EQUAL
+          and default["equal_share"] >= IVF_DEFAULT_MIN_EQUAL
+          and default["fit"]["corr"] >= IVF_DEFAULT_MIN_CORR
+          and default["fit"]["rmse"] <= CERT_MAX_RMSE
+          and held["equal_share"] >= IVF_MIN_EQUAL and held["fit"]["finite"]
+          and held["fit"]["corr"] >= CERT_MIN_CORR and held["fit"]["rmse"] <= CERT_MAX_RMSE
+          and recall > IVF_MIN_RECALL and streamed)
+    if not ok:
+        raise AssertionError(f"ivf failed its bars: {stats}")
+    return stats
+
+
+def tutorials_path():
+    """[tutorials]: the four examples/*_tutorial_torch.py, each run to its
+    end through runpy on the card; returns their seconds."""
+    import runpy
+
+    seconds = {}
+    for name in TUTORIALS:
+        path = os.path.join(ROOT, "examples", f"{name}_tutorial_torch.py")
+        _, seconds[name] = synced_seconds(lambda p=path: runpy.run_path(p, run_name="__main__"))
+        log(f"[tutorials] {name}: {seconds[name]!r} s")
+    return seconds
+
+
 class CountedCalls:
     """A batched potential that counts its calls: one per lockstep leaf."""
 
@@ -2129,11 +2307,14 @@ def main():
     run("nystroem", lambda: nystroem_path(mt))
     run("full capacity", lambda: full_capacity_path(mt, x_np, ld_ref, default))
     atlas = run("atlas", lambda: atlas_path(mt))
+    run("ivf", lambda: ivf_path(mt, atlas[2], atlas[0]["prepare_seconds"]))
+    torch.cuda.empty_cache()
     run("atlas nuts", lambda: atlas_nuts_path(mt, atlas[2], smi))
     atlas = atlas[:2]
     torch.cuda.empty_cache()
     run("dimensionality nuts", lambda: dimensionality_nuts_path(mt, x_np, dim[1]))
     run("checkpoint", lambda: checkpoint_path(mt, nuts[1], x_new))
+    run("tutorials", tutorials_path)
     stop_recording()
     launches = sum(path_launches.values())
     if len(calls) != launches:

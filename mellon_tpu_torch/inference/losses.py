@@ -121,6 +121,14 @@ def density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
     return density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term)[0]
 
 
+def density_loglik(z, L, nn_distances, d, mu):
+    """The likelihood term of the density model at z alone (a 0-d tensor),
+    as ``mellon_tpu.inference.losses.density_loglik``."""
+    V, Vdr = nearest_neighbors_terms(nn_distances, d)
+    f = _matmul(L, z) + mu
+    return torch.sum((f + Vdr) - torch.exp(f + V))
+
+
 def make_density_value_and_grad(L, nn_distances, d, mu, loss_offset_per_term=0.0, group=None):
     """``z -> (loss, gradient)`` with the likelihood constants computed once,
     for the optimizer's repeated evaluations.  With a process ``group``, L

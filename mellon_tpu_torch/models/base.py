@@ -79,7 +79,7 @@ from ..utils.parameter_validation import (
     validate_cov_func_curry,
     validate_params,
 )
-from ..utils.util import DEFAULT_JITTER, GaussianProcessType, object_str, test_rank
+from ..utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, object_str, test_rank
 from ..utils.validation import (
     validate_array,
     validate_bool,
@@ -282,7 +282,8 @@ class BaseEstimator:
         )
 
     def set_x(self, x):
-        """Validate and pin the training data on the estimator's device."""
+        """Validate and pin the training data on the estimator's device; a
+        1-d x (one feature) becomes one column."""
         if self.x is not None and x is not None and self.x is not x:
             message = "self.x has been set already, but is not equal to the argument x."
             logger.error(message)
@@ -293,7 +294,7 @@ class BaseEstimator:
             raise ValueError(message)
         if x is None:
             x = self.x
-        self.x = validate_array(x, "x", ndim=2, dtype=self.dtype, device=self.device)
+        self.x = ensure_2d(validate_array(x, "x", ndim=(1, 2), dtype=self.dtype, device=self.device))
         return self.x
 
     def _compute_n_landmarks(self):

@@ -15,12 +15,13 @@ repeated conditioning.
 
 import logging
 
+import numpy as np
 import torch
 
 from ..inference.factories import compute_conditional
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..parameters import DEFAULT_RANDOM_SEED
-from ..utils.util import DEFAULT_JITTER, GaussianProcessType, object_html, object_str
+from ..utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, object_html, object_str
 from ..utils.validation import (
     validate_array,
     validate_bool,
@@ -159,7 +160,7 @@ class FunctionEstimator(BaseEstimator):
         if x is None:
             x = self.x
         else:
-            x = validate_array(x, "x", dtype=self.dtype, device=self.device)
+            x = ensure_2d(validate_array(x, "x", dtype=self.dtype, device=self.device))
         if self.x is not None and self.x is not x:
             logger.warning(
                 "self.x has been set already, but is not equal to the argument x. "
@@ -241,20 +242,22 @@ class FunctionEstimator(BaseEstimator):
 
     def fit_predict(self, x=None, y=None, Xnew=None):
         """Fit on (x, y) and return the conditional mean at Xnew (default:
-        x)."""
+        x).  The dimensions of x and Xnew are compared as given: both 1-d
+        (one feature) or both 2-d."""
+        x_ndim = None if x is None else np.ndim(x)
         x = self.set_x(x)
         y = validate_array(y, "y", dtype=self.dtype, device=self.device)
         Xnew = validate_array(Xnew, "Xnew", optional=True, dtype=self.dtype, device=self.device)
         if Xnew is None:
             Xnew = x
-        elif x.ndim != Xnew.ndim:
+        elif x_ndim is not None and x_ndim != Xnew.ndim:
             raise ValueError(
                 "The provided arrays, 'x' and 'Xnew', do not have the "
-                f"same number of dimensions. 'x' is {x.ndim}-D and 'Xnew' "
+                f"same number of dimensions. 'x' is {x_ndim}-D and 'Xnew' "
                 f"is {Xnew.ndim}-D. Please provide arrays with consistent "
                 "dimensionality."
             )
-        elif x.ndim > 1 and x.shape[1] != Xnew.shape[1]:
+        elif Xnew.ndim > 1 and x.shape[1] != Xnew.shape[1]:
             raise ValueError(
                 "The provided arrays, 'x' and 'Xnew', should have the "
                 f"same number of features. Got Xnew.shape[1] = "
@@ -273,9 +276,9 @@ class FunctionEstimator(BaseEstimator):
             "Deprecation Warning: FunctionEstimator's multi_fit_predict "
             "method is deprecated. Use FunctionEstimator.fit_predict instead."
         )
-        x = self.set_x(x)
         Y = validate_array(Y, "Y", dtype=self.dtype, device=self.device)
-        n_samples = x.shape[0]
+        # x goes on as given, so that fit_predict compares its dimensions
+        n_samples = self.set_x(None).shape[0] if x is None else np.shape(x)[0]
         if Y.shape[0] != n_samples and Y.ndim > 1 and Y.shape[1] == n_samples:
             logger.warning(
                 "Y.shape[0] does not equal X.shape[0] (the number of "

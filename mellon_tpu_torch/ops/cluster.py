@@ -1,8 +1,9 @@
 """Seeded k-means for landmark selection (counterpart of ``mellon_tpu/ops/cluster.py``).
 
 k-means++ seeding draws on the device with ``torch.multinomial`` from a
-``torch.Generator``, so the k sequential draws make no host round trip.
-torch cannot reproduce JAX's threefry stream: the same seed gives other
+``torch.Generator``, so the k sequential draws make no host round trip;
+``init="random"`` takes k distinct rows from the same generator.  torch
+cannot reproduce JAX's threefry stream: the same seed gives other
 centroids than the JAX package, of comparable quality.  Hand-written
 assignment/update kernels are ROADMAP kernel K3.
 
@@ -69,12 +70,21 @@ def _lloyd(x, init_centroids, k, n_iter, block_size):
     return centroids
 
 
-def k_means(x, k, n_iter=DEFAULT_N_ITER, random_state=0, block_size=DEFAULT_ASSIGN_BLOCK):
-    """Seeded k-means++ and Lloyd, returning the (k, d) centroids."""
+def k_means(x, k, n_iter=DEFAULT_N_ITER, random_state=0, block_size=DEFAULT_ASSIGN_BLOCK,
+            init="k-means++"):
+    """Seeded Lloyd k-means returning the (k, d) centroids.  ``init``:
+    ``"k-means++"`` (D²-weighted seeding, sklearn's default) or
+    ``"random"`` (k distinct rows drawn uniformly: cheaper for a large k,
+    as in the IVF search's coarse quantizer)."""
     x = x[:, None] if x.ndim == 1 else x
     n = x.shape[0]
     if k > n:
         raise ValueError(f"k={k} must not exceed the number of points {n}.")
     generator = torch.Generator(device=x.device).manual_seed(int(random_state))
-    init_centroids = _kmeanspp_init(x, int(k), generator)
+    if init == "k-means++":
+        init_centroids = _kmeanspp_init(x, int(k), generator)
+    elif init == "random":
+        init_centroids = x[torch.randperm(n, generator=generator, device=x.device)[: int(k)]]
+    else:
+        raise ValueError(f"Unknown k-means init method: {init}")
     return _lloyd(x, init_centroids, int(k), int(n_iter), int(min(block_size, n)))

@@ -161,8 +161,9 @@ def compute_landmarks(x, gp_type=None, n_landmarks=DEFAULT_N_LANDMARKS, random_s
 
 def compute_distances(x, k, seed=DEFAULT_RANDOM_SEED):
     """Distances to the k nearest other points of each row of x, (n, k),
-    ascending.  The search is exact; ``seed`` is accepted for the JAX
-    package's signature."""
+    ascending, by ``knn_distances``'s ``"auto"`` choice (exact on the card;
+    IVF for a CPU tensor above ``IVF_THRESHOLD`` rows).  ``seed`` is
+    accepted for the JAX package's signature and unused, as there."""
     x = ensure_2d(x)
     n_samples = x.shape[0]
     if n_samples == 0:
@@ -173,9 +174,9 @@ def compute_distances(x, k, seed=DEFAULT_RANDOM_SEED):
     return knn_distances(x, k)
 
 
-def compute_nn_distances(x):
+def compute_nn_distances(x, seed=DEFAULT_RANDOM_SEED):
     """Distance to the nearest other point of each row of x."""
-    return compute_distances(x, 1)[:, 0]
+    return compute_distances(x, 1, seed=seed)[:, 0]
 
 
 def compute_d(x):
@@ -413,6 +414,16 @@ def compute_initial_value(nn_distances, d, mu, L):
     """Ridge warm start: z minimizing ||Lz + mu - mle||² + ||z||²."""
     target = mle(nn_distances, d) - mu
     return ridge_solve(L, target, 1.0)
+
+
+def compute_initial_zeros(x, L):
+    """A (n, rank) zero start, in L's dtype and on its device."""
+    return torch.zeros((x.shape[0], L.shape[1]), dtype=L.dtype, device=L.device)
+
+
+def compute_initial_ones(x, L):
+    """A (n,) start of ones, in L's dtype and on its device."""
+    return torch.ones(x.shape[0], dtype=L.dtype, device=L.device)
 
 
 def compute_average_cell_count(x, normalize):

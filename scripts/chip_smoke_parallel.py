@@ -38,7 +38,12 @@ and Hessian, z* and T one digest on every rank; chain-sharded NUTS in w at
 chip_smoke.ATLAS_NUTS (split-R-hat over chip_smoke's latent subset, the
 posterior-mean log density against the rank's MAP and, at 1M, against
 [atlas nuts]'s from chip_smoke.ATLAS_POSTERIOR), the milliseconds per
-lockstep leaf and, on NCCL, the cells all_reduce's share of one;
+lockstep leaf and, on NCCL, the cells all_reduce's share of one; the
+chains saved with save_sampler_state(chain_sharding=) (rank 0 writes
+OUT/atlas_checkpoint), reloaded on every rank (state, step size and
+mass equal to the run's) and resumed for ATLAS_RESUME_DRAWS transitions
+with resume_mcmc (finite; the resumed draws alone within [nuts]'s
+split-R-hat bar);
 shard_predict of the posterior-mean predictor at PREDICT_POINTS points
 against the unsharded one.
 
@@ -98,6 +103,11 @@ TIMEOUT = datetime.timedelta(seconds=60)
 ATLAS_GLOO_CELLS = 100_000
 ATLAS_TIMEOUT = datetime.timedelta(seconds=240)
 CURVATURE_REL = 1e-5
+# the atlas checkpoint's resumed transitions, as many as the saved run
+# drew, so that their own split-R-hat reads the resumed chains (over 10
+# draws, 16 halves of 5, it read 1.141-1.150 on the H100: noise; PERF.md)
+ATLAS_RESUME_DRAWS = chip_smoke.ATLAS_NUTS["num_samples"]
+ATLAS_RESUME_SEED = 6
 REDUCE_CALLS = 50
 
 
@@ -363,7 +373,7 @@ def digest(*tensors):
     return h.hexdigest()
 
 
-def phase_atlas(bars, device, world, backend):
+def phase_atlas(bars, device, world, backend, out):
     """Configuration 5's sampler on the 2 x 2 (chains x cells) mesh: the
     sharded curvature against the whole-L one, the global L freed, the
     preconditioner from the sharded potential and Hessian (z* and T the
@@ -444,6 +454,31 @@ def phase_atlas(bars, device, world, backend):
                ms_per_call={n: 1e3 * t / REDUCE_CALLS for n, t in timed.items()},
                all_reduce_ms_per_leaf=reduce_ms, backend=backend)
 
+    path = os.path.join(out, "atlas_checkpoint")
+    parallel.save_sampler_state(
+        path, samples=sharding.shard(res.samples), state=sharding.shard(res.samples[:, -1]),
+        step_size=res.step_size, inv_mass_diag=res.inv_mass_diag,
+        metadata={"algorithm": "nuts", "space": "whitened", "mesh": list(mesh.shape.values())},
+        chain_sharding=sharding)
+    loaded = parallel.load_sampler_state(path)
+    resumed = mcmc.resume_mcmc(
+        potential, loaded["state"][0], torch.Generator(device=z0.device).manual_seed(ATLAS_RESUME_SEED),
+        loaded["step_size"], loaded["inv_mass_diag"], num_samples=ATLAS_RESUME_DRAWS,
+        max_tree_depth=chip_smoke.ATLAS_NUTS["max_tree_depth"], chain_sharding=sharding)
+    more = mcmc.unwhiten_samples(resumed.samples, T, z_star)
+    resumed_rhat = float(np.max(split_rhat(more[:, :, sub])))
+    as_saved = (torch.equal(loaded["state"][0], res.samples[:, -1])
+                and torch.equal(torch.as_tensor(loaded["step_size"]).cpu(),
+                                torch.as_tensor(res.step_size).cpu())
+                and torch.equal(loaded["inv_mass_diag"].cpu(), res.inv_mass_diag.cpu()))
+    bars.check("atlas checkpoint resumed",
+               chip_smoke.finite(more) and resumed_rhat <= chip_smoke.NUTS_MAX_RHAT and as_saved
+               and loaded["samples"].device == z0.device,
+               saved_on=loaded["metadata"]["mesh"], chains=int(loaded["state"][0].shape[0]),
+               draws=ATLAS_RESUME_DRAWS, as_saved=as_saved, max_rhat=resumed_rhat,
+               step_size=float(resumed.step_size), mean_accept=float(resumed.accept_prob.mean()),
+               bar=chip_smoke.NUTS_MAX_RHAT)
+
     pred = compute_conditional(x, keep["landmarks"], z_mean, None, None, mu, keep["cov_func"],
                                None, keep["Lp"], sigma=None, jitter=keep["jitter"],
                                y_is_mean=True)
@@ -483,7 +518,7 @@ def main():
                                     timeout=ATLAS_TIMEOUT if phase == "atlas" else TIMEOUT)
     bars = Bars()
     if phase == "atlas":
-        launches, calls = phase_atlas(bars, device, world, backend)
+        launches, calls = phase_atlas(bars, device, world, backend, out)
     else:
         (est, x), fit_launches, fit_calls = counted("fit", lambda: fit(device))
         if phase == "ranks":

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's paths from the FunctionEstimator on (14-26,
-all but [time matched]) on the CPU at a reduced size.
+28 and 29, all but [time matched]) on the CPU at a reduced size.
 
     python scripts/chip_smoke_rehearsal.py [outputs]
 
@@ -14,7 +14,8 @@ reported, not held), [ls_time] on a tenth of its cells per time point;
 [nystroem] on the Nyström reference's 8,627 cells with 600 landmarks,
 [full capacity] with 1,000 default landmarks (float32 factors 500
 there), [atlas] on 20,000 cells with 500 landmarks and its subscale on
-the reference's first 5,000 cells, and [nuts], [dimensionality nuts] and
+the reference's first 5,000 cells, [ivf] on the atlas's cells and that
+subscale, [tutorials] whole, and [nuts], [dimensionality nuts] and
 [checkpoint] at 4 chains, 30 warmup and 10 draws, with the certificates
 and sampler bars of these reduced runs reported, not held: the control
 flow, the launch counts and the float32-vs-float64 gaps that
@@ -108,9 +109,11 @@ def main():
         "nystroem": lambda r: cs.nystroem_path(mt),
         "full capacity": full_capacity,
         "atlas": lambda r: cs.atlas_path(mt),
+        "ivf": lambda r: cs.ivf_path(mt, r["atlas"][2], r["atlas"][0]["prepare_seconds"]),
         "nuts": lambda r: cs.nuts_path(mt, x_np, x_new, mt.DensityEstimator().fit(x_np)),
         "dimensionality nuts": lambda r: cs.dimensionality_nuts_path(mt, x_np, r["dimensionality"][1]),
         "checkpoint": lambda r: cs.checkpoint_path(mt, r["nuts"][1], x_new),
+        "tutorials": lambda r: cs.tutorials_path(),
     }
     return run_paths(paths)
 

@@ -559,6 +559,38 @@ def test_checkpoint_saved_on_card_loads_on_card(cuda, tmp_path):
                        torch.randn(5, device=cuda, generator=g))
 
 
+def test_knn_ivf_on_card_matches_cpu(cuda, monkeypatch):
+    """knn_ivf on the card equals the CPU run on the same centroids (handed
+    in for both through ``neighbors._ivf_quantizer``), float64: equal
+    indices, distances within 1e-12."""
+    from mellon_tpu_torch.ops import cluster, neighbors
+
+    x = torch.tensor(np.random.RandomState(50).randn(3000, 4))
+    centroids = cluster.k_means(x, 48, n_iter=10, random_state=0, init="random")
+    monkeypatch.setattr(neighbors, "_ivf_quantizer",
+                        lambda x_, n_clusters, seed: centroids.to(x_.device))
+    d_cpu, i_cpu = neighbors.knn_ivf(x, 3, n_clusters=48, n_probe=8)
+    d_card, i_card = neighbors.knn_ivf(x.to(cuda), 3, n_clusters=48, n_probe=8)
+    assert d_card.device.type == "cuda"
+    assert torch.equal(i_card.cpu(), i_cpu)
+    assert (d_card.cpu() - d_cpu).abs().max().item() <= 1e-12
+
+
+def test_auto_on_card_stays_exact_above_threshold(cuda, monkeypatch):
+    """knn_distances(method="auto") on a card tensor above IVF_THRESHOLD
+    (monkeypatched to 1,000) takes the exact search, not IVF: it equals
+    method="exact" bit for bit and never calls knn_ivf."""
+    from mellon_tpu_torch.ops import neighbors
+
+    monkeypatch.setattr(neighbors, "IVF_THRESHOLD", 1000)
+    calls = []
+    monkeypatch.setattr(neighbors, "knn_ivf", lambda *args, **kwargs: calls.append(1))
+    x = torch.tensor(np.random.RandomState(51).randn(1500, 20), dtype=torch.float32, device=cuda)
+    auto = neighbors.knn_distances(x, 2)
+    assert not calls
+    assert torch.equal(auto, neighbors.knn_distances(x, 2, method="exact"))
+
+
 def test_two_ranks_on_two_cards(cuda, tmp_path):
     """Two NCCL ranks, one card each (this file run as a rank): the
     cell-sharded potential on the 1 x 2 mesh against the local one

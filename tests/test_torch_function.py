@@ -509,3 +509,32 @@ def test_multi_fit_predict_and_errors():
         mt.FunctionEstimator(**CPU64).predict
     with pytest.raises(ValueError, match="should equal"):
         mt.FunctionEstimator(**CPU64).fit(x, y[:10])
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_one_feature_as_a_1d_array_matches_jax(sparse):
+    """A 1-d x (one feature, as the trajectory tutorial passes pseudotime)
+    is taken as one column, as mellon_tpu takes it: fit_predict,
+    multi_fit_predict, leverage and the observation variance to TOL, the
+    sparse fit on the JAX package's landmarks (a length scale of a tenth of
+    the range keeps their Gram conditioned for TOL, as LS_FACTOR does
+    above); a 1-d x against a 2-d Xnew is refused in both packages."""
+    rng = np.random.RandomState(3)
+    t = np.sort(rng.rand(N)) * 10
+    y = np.stack([np.sin(t), np.cos(t)], axis=1) + 0.1 * rng.randn(N, 2)
+    grid = np.linspace(0, 10, 17)
+    kwargs = dict(ls=1.0, sigma=0.3, obs_variance=True)
+    jest = mellon_tpu.FunctionEstimator(n_landmarks=M if sparse else 0, **kwargs)
+    want = jest.fit_predict(jnp.asarray(t), jnp.asarray(y), jnp.asarray(grid))
+    where = dict(landmarks=np.asarray(jest.landmarks)) if sparse else dict(n_landmarks=0)
+    est = mt.FunctionEstimator(**where, **kwargs, **CPU64)
+    _close(est.fit_predict(t, y, grid), want)
+    assert tuple(est.x.shape) == (N, 1)
+    _close(est.leverage(t), jest.leverage(jnp.asarray(t)))
+    _close(est.get_obs_variance(grid), jest.get_obs_variance(jnp.asarray(grid)))
+    again = mt.FunctionEstimator(**where, **kwargs, **CPU64).multi_fit_predict(t, y.T, grid)
+    _close(again, want.T)
+    for fit_predict in (mellon_tpu.FunctionEstimator(**kwargs).fit_predict,
+                        mt.FunctionEstimator(**kwargs, **CPU64).fit_predict):
+        with pytest.raises(ValueError, match="same number of dimensions"):
+            fit_predict(t, y, grid[:, None])

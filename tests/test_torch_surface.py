@@ -44,6 +44,34 @@ def test_exports_cover_the_jax_package(subpackage):
         assert hasattr(port, name), name
 
 
+def _public(module):
+    """The public names a module defines itself (not its imports)."""
+    return {name for name, value in vars(module).items()
+            if not name.startswith("_") and not isinstance(value, types.ModuleType)
+            and getattr(value, "__module__", module.__name__) == module.__name__}
+
+
+@pytest.mark.parametrize("module, some", [
+    ("ops.neighbors", {"knn_ivf", "IVF_THRESHOLD", "DEFAULT_COL_BLOCK"}),
+    ("ops.cluster", {"k_means", "DEFAULT_N_ITER"}),
+])
+def test_module_names_cover_the_jax_module(module, some):
+    """Every public name of mellon_tpu.ops.neighbors and .cluster (the
+    functions and constants it defines) has a counterpart of the same
+    name, a constant the same value; ROADMAP's "Do not port" keeps none
+    of them."""
+    jax_module = importlib.import_module(f"mellon_tpu.{module}")
+    port = importlib.import_module(f"mellon_tpu_torch.{module}")
+    names = _public(jax_module)
+    assert some <= names
+    missing = {name for name in names if not hasattr(port, name)}
+    assert not missing, missing
+    for name in names:
+        value = getattr(jax_module, name)
+        if isinstance(value, (int, float)):
+            assert getattr(port, name) == value, name
+
+
 @pytest.mark.parametrize(
     "alias, module",
     [("util", "utils.util"), ("cov", "ops.kernels"), ("model", "models"),
@@ -226,3 +254,27 @@ def test_batched_vmap_matches_jax():
                                                     jnp.asarray(w), batch_size=5))
     assert got.shape == want.shape == (23, 2)
     np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_density_loglik_matches_jax():
+    """inference.losses.density_loglik, the density model's likelihood
+    term alone, against the JAX package's (1e-12 relative)."""
+    from mellon_tpu.inference.losses import density_loglik as jax_density_loglik
+    from mellon_tpu_torch.inference.losses import density_loglik
+
+    L, nn, z = _loss_problem(seed=13)
+    got = float(density_loglik(torch.tensor(z), torch.tensor(L), torch.tensor(nn), 4.0, -2.5))
+    want = float(jax_density_loglik(jnp.asarray(z), jnp.asarray(L), jnp.asarray(nn), 4.0, -2.5))
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_initial_zeros_and_ones_match_jax():
+    """parameters.compute_initial_zeros (n, rank) and compute_initial_ones
+    (n,): the JAX package's shapes and values, in L's dtype and on its
+    device."""
+    x, L = np.ones((7, 3)), np.ones((7, 4))
+    for name in ("compute_initial_zeros", "compute_initial_ones"):
+        got = getattr(mt.parameters, name)(torch.tensor(x), torch.tensor(L, dtype=torch.float32))
+        want = np.asarray(getattr(mellon_tpu.parameters, name)(jnp.asarray(x), jnp.asarray(L)))
+        assert got.dtype == torch.float32 and got.device.type == "cpu"
+        np.testing.assert_array_equal(to_np(got), want)
