@@ -296,6 +296,20 @@ NUTS_MIN_ESS = 100
 PRECOND = dict(num_chains=64, num_warmup=100, num_samples=200)
 SMC = dict(num_particles=1024, start="laplace", num_sweeps=2)
 TRACE_TRANSITIONS = 10
+# [functional]: the JAX form of the inference API on the main path's fit.
+# The fused route's run against the batched call (bit for bit) is cut to a
+# depth of 6, which the unpreconditioned trees reach; the two routes are
+# compared in the Hessian-whitened coordinates, where trees turn early.
+FUNCTIONAL_NUTS = dict(num_chains=16, num_warmup=20, num_samples=5, max_tree_depth=6)
+FUNCTIONAL_PRECOND = dict(num_chains=16, num_warmup=100, num_samples=100, max_tree_depth=10)
+FUNCTIONAL_MAX_RHAT = 1.05
+FUNCTIONAL_MIN_CORR = 0.999
+FUNCTIONAL_LAPLACE_REL = 1e-5
+FUNCTIONAL_ADAM_STEPS = 100
+FUNCTIONAL_SMC_PARTICLES = 256
+FUNCTIONAL_TIME_CELLS = 200
+FUNCTIONAL_DIM_CELLS = 2000
+FUNCTIONAL_DIM_LANDMARKS = 500
 # the FunctionEstimator, DimensionalityEstimator and full-GP paths: the
 # gene-trend outputs, the cells of the full type (the most it picks by
 # default: min(n, 5,000) landmarks), and their float32-vs-float64 bars, set
@@ -740,14 +754,14 @@ def uncertainty_path(mt, x_np, x_new, xq, ld_ref):
     1,000 also in float64; returns the estimator."""
     import torch
 
-    from mellon_tpu_torch.inference.laplace import compute_laplace_std
+    from mellon_tpu_torch.inference.laplace import laplace_std_from_diagonal
 
     est = mt.DensityEstimator(predictor_with_uncertainty=True, device=DEVICE)
     ld, fit_s = synced_seconds(lambda: est.fit_predict(x_np))
     corr, rmse = certificate(ld, ld_ref)
     std = est.pre_transformation_std
     _, laplace_s = synced_seconds(
-        lambda: compute_laplace_std(est._hessian_diagonal(est.pre_transformation)))
+        lambda: laplace_std_from_diagonal(est._hessian_diagonal(est.pre_transformation)))
     log(f"[uncertainty] fit with Laplace {fit_s:.3f} s; Laplace alone (again, on the same "
         f"MAP) {laplace_s!r} s; std range [{std.min().item()!r}, {std.max().item()!r}]; "
         f"certificate corr {corr!r}, RMSE/spread {rmse!r}")
@@ -908,7 +922,7 @@ def nuts_path(mt, x_np, x_new, est_map):
     import numpy as np
 
     from mellon_tpu_torch.inference.diagnostics import split_rhat
-    from mellon_tpu_torch.inference.laplace import compute_laplace_std
+    from mellon_tpu_torch.inference.laplace import laplace_std_from_diagonal
 
     est = mt.DensityEstimator(optimizer="nuts", predictor_with_uncertainty=True,
                               sampler_options=NUTS_OPTIONS, device=DEVICE)
@@ -916,7 +930,7 @@ def nuts_path(mt, x_np, x_new, est_map):
     res = est.mcmc_result
     chains, draws = res.samples.shape[:2]
     rhat = float(np.max(split_rhat(res.samples)))
-    laplace = compute_laplace_std(est_map._hessian_diagonal(est_map.pre_transformation))
+    laplace = laplace_std_from_diagonal(est_map._hessian_diagonal(est_map.pre_transformation))
     ratio = float(est.pre_transformation_std.mean() / laplace.mean())
     corr = log_density_corr(ld, est_map.log_density_x)
     u = est.predict.uncertainty(x_new)
@@ -957,16 +971,16 @@ def precond_path(mt, est_map, x_new):
 
     args = est_map._loss_args
     z0 = est_map.pre_transformation
-    value_and_grad, _ = mcmc.zero_centered_potential(z0, *args)
+    value_and_grad, _ = mcmc.zero_centered_density_potential(z0, *args)
     hessian = lambda z: density_hessian(z, *args)  # noqa: E731
-    (z_map, gn0, gn1), polish_s = synced_seconds(lambda: mcmc.newton_polish(value_and_grad, hessian, z0))
+    (z_map, gn0, gn1), polish_s = synced_seconds(lambda: mcmc.newton_polish_value_and_grad(value_and_grad, hessian, z0))
     H, build_s = synced_seconds(lambda: hessian(z_map))
-    _, factor_s = synced_seconds(lambda: mcmc.precondition_transform(mcmc.hessian_cholesky(H)))
+    _, factor_s = synced_seconds(lambda: mcmc.precondition_transform(mcmc.factor_hessian(H)))
     (res, _), seconds = synced_seconds(lambda: mcmc.sample_density_posterior(
         est_map, precondition="hessian", function_samples=False, **PRECOND))
-    R = mcmc.hessian_cholesky(H)
+    R = mcmc.factor_hessian(H)
     trace = trace_transitions(
-        mcmc.preconditioned_potential(value_and_grad, mcmc.precondition_transform(R), z_map),
+        mcmc.precondition_value_and_grad(value_and_grad, mcmc.precondition_transform(R), z_map),
         (res.samples[:, -1] - z_map) @ R, res.step_size, res.inv_mass_diag)
     chains, draws = res.samples.shape[:2]
     ess, lags = effective_sample_size(res.samples, return_truncation=True)
@@ -1065,6 +1079,182 @@ def smc_path(mt, est_map, x_new):
             and corr >= POSTERIOR_MIN_CORR):
         raise AssertionError(f"SMC failed its bars: {stats}")
     return stats
+
+
+def inline_density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
+    """The density loss written out in torch ops, as a user writes a scalar
+    potential: the functional API evaluates it by torch.func."""
+    import torch
+
+    k = z.shape[0]
+    const = d * math.log(math.pi) / 2 - math.lgamma(d / 2 + 1)
+    V = torch.log(nn_distances) * d + const
+    Vdr = math.log(d) + (d - 1) * torch.log(nn_distances) + const
+    f = L @ z + mu
+    prior = -0.5 * torch.sum(z * z) - (k / 2) * math.log(2 * math.pi)
+    return -(prior + torch.sum(f + Vdr - torch.exp(f + V) + loss_offset_per_term))
+
+
+def same_fields(a, b, fields):
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields)
+
+
+def functional_path(mt, est, x_np, ld):
+    """The JAX form of the inference API (a scalar potential and its
+    operands) on the main path's fit: run_mcmc(density_loss, ...) draws
+    what the batched call draws, bit for bit, through the fused factory;
+    the density loss written inline runs 16 chains through torch.func in
+    the Hessian-whitened coordinates, held to the fused route (split-R-hat,
+    the corr of the posterior means of f), with ms per leaf for both;
+    compute_laplace_std against the closed-form diagonal; minimize_lbfgs,
+    minimize_adam and run_advi against their value_and_grad forms; a short
+    run_smc from laplace_start; est(x) and PredictorTime's Xnew=."""
+    import numpy as np
+    import torch
+
+    from mellon_tpu_torch.inference import advi, laplace, mcmc, optimizers, samplers, smc
+    from mellon_tpu_torch.inference.diagnostics import split_rhat
+    from mellon_tpu_torch.inference.losses import (
+        density_hessian_diagonal,
+        density_loss,
+        make_density_loss_batch,
+        make_density_value_and_grad,
+        make_density_value_and_grad_batch,
+    )
+
+    def gen(seed):
+        return torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def check(label, ok, stats):
+        log(f"[functional] {label} " + json.dumps(stats))
+        if not ok:
+            raise AssertionError(f"[functional] {label} failed its bars: {stats}")
+
+    args, z_map, z0 = est._loss_args, est.pre_transformation, est.initial_value
+    L, mu = args[0], args[3]
+    fields = ("samples", "potential", "accept_prob", "step_size", "inv_mass_diag", "num_leapfrog")
+
+    # run_mcmc(density_loss, ..., potential_args) against the batched call
+    fn, cargs = mcmc.zero_centered_potential(density_loss, z_map, args)
+    built, fused = [], samplers.make_density_value_and_grad_batch
+
+    def spy(*a, **kw):
+        built.append(len(a))
+        return fused(*a, **kw)
+
+    samplers.make_density_value_and_grad_batch = spy
+    try:
+        functional, functional_s = synced_seconds(lambda: mcmc.run_mcmc(
+            fn, z_map, gen(5), potential_args=cargs, **FUNCTIONAL_NUTS))
+    finally:
+        samplers.make_density_value_and_grad_batch = fused
+    batched = make_density_value_and_grad_batch(*cargs[:5], center=cargs[5])
+    direct, direct_s = synced_seconds(lambda: mcmc.run_mcmc(batched, z_map, gen(5), **FUNCTIONAL_NUTS))
+    check("fused route", built == [5] and same_fields(functional, direct, fields), {
+        "settings": FUNCTIONAL_NUTS, "bit_identical": same_fields(functional, direct, fields),
+        "fused_factory_calls": len(built), "seconds": [functional_s, direct_s]})
+
+    # the two routes in the whitened coordinates of the same Newton-polished MAP
+    (z_star, gn0, gn1), polish_s = synced_seconds(lambda: mcmc.newton_polish(fn, z_map, cargs))
+    T = mcmc.precondition_transform(mcmc.hessian_cholesky(fn, z_star, 1e-6, *cargs))
+    routes = {}
+    for route, base, base_args in (("fused", density_loss, cargs),
+                                   ("torch.func", inline_density_loss, cargs[:5])):
+        pot = counted_calls(samplers.as_batched(mcmc.preconditioned_potential(base),
+                                                (T, z_star) + base_args))
+        res, seconds = synced_seconds(lambda: mcmc.run_mcmc(
+            pot, torch.zeros_like(z_star), gen(6), **FUNCTIONAL_PRECOND))
+        samples = mcmc.unwhiten_samples(res.samples, T, z_star)
+        routes[route] = dict(
+            f_mean=L @ samples.reshape(-1, samples.shape[-1]).mean(dim=0) + mu,
+            stats={"seconds": seconds, "leaves": pot.calls, "ms_per_leaf": 1e3 * seconds / pot.calls,
+                   "max_rhat": float(np.max(split_rhat(samples))), "step_size": float(res.step_size),
+                   "leapfrogs_per_draw": float(res.num_leapfrog.double().mean()),
+                   "finite": finite(samples)})
+    corr = log_density_corr(routes["torch.func"]["f_mean"], routes["fused"]["f_mean"])
+    stats = {"settings": FUNCTIONAL_PRECOND, "newton_grad_norm": [gn0, gn1], "polish_seconds": polish_s,
+             "corr_of_posterior_mean_f": corr, **{r: v["stats"] for r, v in routes.items()}}
+    check("routes", corr > FUNCTIONAL_MIN_CORR and all(v["stats"]["finite"] for v in routes.values())
+          and routes["torch.func"]["stats"]["max_rhat"] <= FUNCTIONAL_MAX_RHAT, stats)
+
+    # compute_laplace_std: the closed form by identity; torch.func's
+    # Hessian-vector products of the inline loss (float64)
+    closed = laplace.laplace_std_from_diagonal(density_hessian_diagonal(z_map, *args))
+    by_identity = laplace.compute_laplace_std(density_loss, z_map, loss_args=args)
+    args64 = (L.double(), args[1].double(), args[2], args[3])
+    closed64 = laplace.laplace_std_from_diagonal(density_hessian_diagonal(z_map.double(), *args64))
+    by_hvp, hvp_s = synced_seconds(lambda: laplace.compute_laplace_std(
+        inline_density_loss, z_map.double(), loss_args=args64))
+    gaps = [relative_gap(by_identity, closed), relative_gap(by_hvp, closed64)]
+    check("laplace", max(gaps) <= FUNCTIONAL_LAPLACE_REL,
+          {"rel_gap_fused_f32": gaps[0], "rel_gap_torch_func_f64": gaps[1], "hvp_seconds": hvp_s})
+
+    # the optimizers and ADVI: the scalar form against the value_and_grad
+    # form (the same numbers), and the inline loss by autograd or torch.func
+    vg = make_density_value_and_grad(*args)
+    runs = {
+        "lbfgs": (lambda f: optimizers.minimize_lbfgs(f, z0, loss_args=args).pre_transformation,
+                  lambda: optimizers.minimize_lbfgs_value_and_grad(vg, z0).pre_transformation),
+        "adam": (lambda f: optimizers.minimize_adam(
+                     f, z0, n_iter=FUNCTIONAL_ADAM_STEPS, loss_args=args).pre_transformation,
+                 lambda: optimizers.minimize_adam_value_and_grad(
+                     vg, z0, n_iter=FUNCTIONAL_ADAM_STEPS).pre_transformation),
+        "advi": (lambda f: advi.run_advi(f, z0, seed=0, loss_args=args).pre_transformation,
+                 lambda: advi.run_advi_batch(make_density_loss_batch(*args), z0,
+                                             generator=gen(0)).pre_transformation),
+    }
+    stats, ok = {}, True
+    for name, (scalar, value_and_grad) in runs.items():
+        (got, want, inline), seconds = synced_seconds(
+            lambda: (scalar(density_loss), value_and_grad(), scalar(inline_density_loss)))
+        inline_corr = log_density_corr(L @ inline + mu, L @ want + mu)
+        stats[name] = {"bit_identical": bool(torch.equal(got, want)), "inline_corr": inline_corr,
+                       "seconds": seconds}
+        ok = ok and torch.equal(got, want) and inline_corr > FUNCTIONAL_MIN_CORR
+    check("optimizers", ok, stats)
+
+    # a short SMC sweep from the JAX form's Laplace start
+    loglik, prior = smc.laplace_start(density_loss, args, z0, z_map=z_map)
+    res, seconds = synced_seconds(lambda: smc.run_smc(
+        loglik, int(z_map.shape[0]), gen(7), num_particles=FUNCTIONAL_SMC_PARTICLES,
+        loglik_args=args, **prior))
+    corr = log_density_corr(L @ res.particles.mean(dim=0) + mu, est.log_density_x)
+    check("smc", res.betas[-1] == 1.0 and math.isfinite(res.log_evidence) and finite(res.particles)
+          and corr >= POSTERIOR_MIN_CORR,
+          {"particles": FUNCTIONAL_SMC_PARTICLES, "stages": len(res.betas), "seconds": seconds,
+           "log_evidence": res.log_evidence, "corr_with_map": corr})
+
+    # est(x) is est.fit_predict(x); PredictorTime takes Xnew
+    rng = np.random.RandomState(8)
+    course = np.concatenate([rng.randn(FUNCTIONAL_TIME_CELLS, 2) + 0.5 * t for t in (0.0, 1.0, 2.0)])
+    course = np.concatenate(
+        [course, np.repeat([0.0, 1.0, 2.0], FUNCTIONAL_TIME_CELLS)[:, None]], axis=1).astype(np.float32)
+    x_dim = x_np[:FUNCTIONAL_DIM_CELLS]
+    made = {
+        "density": (lambda: mt.DensityEstimator(device=DEVICE), x_np),
+        "time": (lambda: mt.TimeSensitiveDensityEstimator(
+            ls_time=1.5, predictor_with_uncertainty=True, device=DEVICE), course),
+        "dimensionality": (lambda: mt.DimensionalityEstimator(
+            n_landmarks=FUNCTIONAL_DIM_LANDMARKS, device=DEVICE), x_dim),
+    }
+    stats, ok, time_est = {}, True, None
+    for name, (make, data) in made.items():
+        called_est = make()
+        called = called_est(data)
+        fitted = ld if name == "density" else make().fit_predict(data)
+        stats[name] = bool(torch.equal(called, fitted))
+        ok = ok and stats[name] and finite(called)
+        if name == "time":
+            time_est = called_est
+    xq = rng.randn(64, 2).astype(np.float32)
+    mean = time_est.predict.mean(Xnew=xq, time=1.0)
+    grid = time_est.predict.mean(Xnew=xq, multi_time=np.array([0.5, 1.5], dtype=np.float32))
+    uncertainty = time_est.predict.covariance(Xnew=xq, time=1.0)
+    xnew_ok = (torch.equal(mean, time_est.predict.mean(xq, 1.0)) and grid.shape == (64, 2)
+               and finite(mean, grid, uncertainty))
+    check("est(x) and Xnew", ok and xnew_ok, {"call_equals_fit_predict": stats, "xnew": xnew_ok})
 
 
 def gene_trends(x, p, seed=GENE_SEED):
@@ -1195,7 +1385,7 @@ def dimensionality_path(mt, x_np, x_new):
     import numpy as np
     import torch
 
-    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs
+    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs_value_and_grad
 
     def fit(dtype, **kwargs):
         est = mt.DimensionalityEstimator(predictor_with_uncertainty=True, device=DEVICE,
@@ -1209,7 +1399,7 @@ def dimensionality_path(mt, x_np, x_new):
         return est, out, seconds
 
     def optimum(est):
-        res, seconds = synced_seconds(lambda: minimize_lbfgs(
+        res, seconds = synced_seconds(lambda: minimize_lbfgs_value_and_grad(
             est._value_and_grad, est.pre_transformation.reshape(-1),
             max_iter=DIMENSIONALITY_CONTINUE))
         dims, log_density = est.transform(res.pre_transformation.reshape(2, -1))
@@ -1855,15 +2045,18 @@ def tutorials_path():
     return seconds
 
 
-class CountedCalls:
-    """A batched potential that counts its calls: one per lockstep leaf."""
+def counted_calls(fn):
+    """The batched potential ``fn`` as a ``BatchedPotential`` that counts
+    its calls in ``.calls``: one per lockstep leaf."""
+    from mellon_tpu_torch.inference.losses import BatchedPotential
 
-    def __init__(self, fn):
-        self.fn, self.calls = fn, 0
+    def counted(Z):
+        potential.calls += 1
+        return fn(Z)
 
-    def __call__(self, Z):
-        self.calls += 1
-        return self.fn(Z)
+    potential = BatchedPotential(counted)
+    potential.calls = 0
+    return potential
 
 
 def latent_subset(k):
@@ -1892,14 +2085,14 @@ def atlas_nuts_path(mt, est, smi):
 
     args = est._loss_args
     z0, ld_map = est.pre_transformation, est.log_density_x
-    value_and_grad, offset = mcmc.zero_centered_potential(z0, *args)
+    value_and_grad, offset = mcmc.zero_centered_density_potential(z0, *args)
     hessian = lambda z: density_hessian(z, *args)  # noqa: E731
     (z_map, gn0, gn1), polish_s = synced_seconds(
-        lambda: mcmc.newton_polish(value_and_grad, hessian, z0))
+        lambda: mcmc.newton_polish_value_and_grad(value_and_grad, hessian, z0))
     H, build_s = synced_seconds(lambda: hessian(z_map))
-    T, factor_s = synced_seconds(lambda: mcmc.precondition_transform(mcmc.hessian_cholesky(H)))
+    T, factor_s = synced_seconds(lambda: mcmc.precondition_transform(mcmc.factor_hessian(H)))
     del H
-    potential = CountedCalls(mcmc.preconditioned_potential(value_and_grad, T, z_map))
+    potential = counted_calls(mcmc.precondition_value_and_grad(value_and_grad, T, z_map))
     opts = {k: v for k, v in ATLAS_NUTS.items() if k != "num_chains"}
     w0 = torch.zeros(ATLAS_NUTS["num_chains"], z_map.shape[0], device=DEVICE, dtype=z_map.dtype)
     gen = torch.Generator(device=DEVICE).manual_seed(ATLAS_NUTS_SEED)
@@ -2288,6 +2481,7 @@ def main():
     nuts = run("nuts", lambda: nuts_path(mt, x_np, x_new, est))
     run("nuts precond", lambda: precond_path(mt, est, x_new))
     run("smc", lambda: smc_path(mt, est, x_new))
+    run("functional", lambda: functional_path(mt, est, x_np, ld))
     # 14-17. the FunctionEstimator, the DimensionalityEstimator and the
     # full GP type
     Y = gene_trends(x_np, FUNCTION_OUTPUTS)

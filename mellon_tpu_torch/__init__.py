@@ -61,8 +61,7 @@ from .ops import linalg as decomposition
 from .parallel import load_sampler_state, save_sampler_state
 from .utils import util, validation
 from .utils.util import GaussianProcessType, set_verbosity
-
-__version__ = "0.6.0"
+from .version import __version__
 
 # the legacy module paths of the reference (``from mellon.util import
 # distance``) as importable modules, as the JAX package registers them

@@ -25,6 +25,8 @@ logger = logging.getLogger("mellon_tpu_torch")
 
 DEFAULT_DEVICE = "cuda"
 DEFAULT_DTYPE = torch.float32
+# the diagonal jitter of the covariance factorizations
+DEFAULT_JITTER = 1e-6
 
 # float32 landmark-pruning policy, as in the JAX package.  Where the
 # landmark kernel does not factor in float32, the default prunes to the

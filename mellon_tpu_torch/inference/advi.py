@@ -7,8 +7,15 @@ Monte-Carlo ELBO over ``nsamples`` draws per step with adam
 initial log-std of 0.  The loss takes all draws at once, as an (S, k)
 batch, and autograd gives the gradient.  The standard-normal draws come
 from a ``torch.Generator``: torch cannot reproduce JAX's threefry stream,
-so :func:`elbo_estimate` takes the draws as a tensor and a test can feed
+so :func:`elbo_from_draws` takes the draws as a tensor and a test can feed
 it JAX's own.
+
+:func:`run_advi` and :func:`elbo_estimate` take the JAX package's
+arguments, a scalar ``loss_func(z, *loss_args)`` (or ``logprob(z)``), a
+``seed`` or a ``torch.Generator`` where JAX takes a key; the scalar is
+evaluated at the batch by :func:`.samplers.batched_values`, the density
+loss in closed form.  The estimators hand :func:`run_advi_batch` their
+batched loss.
 """
 
 import math
@@ -16,7 +23,9 @@ from collections import namedtuple
 
 import torch
 
+from .losses import density_loss, make_density_loss_batch
 from .optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, adam_init, adam_step
+from .samplers import batched_values
 
 DEFAULT_NUM_SAMPLES = 40
 
@@ -29,7 +38,7 @@ def _gaussian_logpdf(x, mean, log_std):
     return torch.sum(-0.5 * z * z - log_std - 0.5 * math.log(2 * math.pi), dim=-1)
 
 
-def elbo_estimate(loss_batch, mean, log_std, draws):
+def elbo_from_draws(loss_batch, mean, log_std, draws):
     """The ELBO averaged over the standard-normal ``draws`` (S, k):
     samples mean + e^{log_std}·draws, each scored by −loss − log q.
     ``loss_batch`` maps the (S, k) samples to their S losses."""
@@ -37,7 +46,50 @@ def elbo_estimate(loss_batch, mean, log_std, draws):
     return torch.mean(-loss_batch(samples) - _gaussian_logpdf(samples, mean, log_std))
 
 
+def elbo_estimate(logprob, generator, mean, log_std, num_samples):
+    """The ELBO of q = N(mean, diag e^{2 log_std}) against the scalar
+    log density ``logprob(z)``, averaged over ``num_samples`` draws from
+    ``generator``, as the JAX package's (differentiable in mean and
+    log_std)."""
+    draws = torch.randn((int(num_samples),) + tuple(mean.shape), generator=generator,
+                        dtype=mean.dtype, device=mean.device)
+    logprob_batch = batched_values(logprob)
+    return elbo_from_draws(lambda Z: -logprob_batch(Z), mean, log_std, draws)
+
+
+def loss_batch_of(loss_func, loss_args=()):
+    """``Z -> losses (S,)`` of ``loss_func(z, *loss_args)`` at each row,
+    differentiable by autograd: the density loss's
+    :func:`.losses.make_density_loss_batch` (the estimator's form), any
+    other by :func:`.samplers.batched_values`."""
+    if loss_func is density_loss and len(loss_args) == 4:
+        return make_density_loss_batch(*loss_args)
+    return batched_values(loss_func, loss_args)
+
+
 def run_advi(
+    loss_func,
+    initial_parameters,
+    n_iter=DEFAULT_N_ITER,
+    init_learn_rate=DEFAULT_INIT_LEARN_RATE,
+    nsamples=DEFAULT_NUM_SAMPLES,
+    jit=True,
+    seed=0,
+    loss_args=(),
+    generator=None,
+):
+    """Fit a mean-field Gaussian to exp(−loss_func) for the scalar
+    ``loss_func(z, *loss_args)``, as the JAX package's: the noise from a
+    ``torch.Generator`` seeded with ``seed`` on the parameters' device (or
+    ``generator``); ``jit`` is accepted and ignored.  Returns ``(mean,
+    std, losses)`` (:func:`run_advi_batch`)."""
+    if generator is None:
+        generator = torch.Generator(device=initial_parameters.device).manual_seed(int(seed))
+    return run_advi_batch(loss_batch_of(loss_func, loss_args), initial_parameters, n_iter=n_iter,
+                          init_learn_rate=init_learn_rate, nsamples=nsamples, generator=generator)
+
+
+def run_advi_batch(
     loss_batch,
     initial_parameters,
     n_iter=DEFAULT_N_ITER,
@@ -64,7 +116,7 @@ def run_advi(
         )
         leaves = tuple(p.requires_grad_(True) for p in params)
         with torch.enable_grad():
-            value = -elbo_estimate(loss_batch, *leaves, draws)
+            value = -elbo_from_draws(loss_batch, *leaves, draws)
             grads = torch.autograd.grad(value, leaves)
         losses.append(value.detach())
         params, state = adam_step(

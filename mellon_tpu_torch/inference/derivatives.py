@@ -7,6 +7,11 @@ alone, so one backward pass of the sum gives every row's gradient, and one
 more pass per feature column gives the Hessian.  (``torch.func.vmap``
 cannot trace the kernel's launch.)  :func:`derivative` differentiates a
 function of one number (a time) at every point of a 1-d grid.
+
+``*args`` are per-row operands, as the JAX package's (it vmaps them with
+the rows): ``function(x, *args)`` is called once on every row, and its
+i-th value may depend on row i of x and of each arg alone.  ``jit`` is
+accepted and ignored.
 """
 
 import torch
@@ -14,20 +19,20 @@ import torch
 from ..utils.validation import validate_1d, validate_float
 
 
-def gradient(function, x):
+def gradient(function, x, *args, jit=True):
     """∂f(xᵢ)/∂xᵢ at each row of x, shape (n, d)."""
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        (grad,) = torch.autograd.grad(function(x).sum(), x)
+        (grad,) = torch.autograd.grad(function(x, *args).sum(), x)
     return grad
 
 
-def hessian(function, x):
+def hessian(function, x, *args, jit=True):
     """∂²f(xᵢ)/∂xᵢ∂xᵢ at each row of x, shape (n, d, d)."""
     x = x.detach().requires_grad_(True)
     d = x.shape[1]
     with torch.enable_grad():
-        (grad,) = torch.autograd.grad(function(x).sum(), x, create_graph=True)
+        (grad,) = torch.autograd.grad(function(x, *args).sum(), x, create_graph=True)
         rows = [
             torch.autograd.grad(grad[:, j].sum(), x, retain_graph=j < d - 1)[0]
             for j in range(d)
@@ -35,9 +40,9 @@ def hessian(function, x):
     return torch.stack(rows, dim=1)
 
 
-def hessian_log_determinant(function, x):
+def hessian_log_determinant(function, x, *args, jit=True):
     """``(sign, log|det|)`` of each row's Hessian, each of shape (n,)."""
-    sign, logdet = torch.linalg.slogdet(hessian(function, x))
+    sign, logdet = torch.linalg.slogdet(hessian(function, x, *args))
     return sign, logdet
 
 

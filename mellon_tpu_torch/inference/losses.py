@@ -57,6 +57,27 @@ SHARDED_DERIVATIVES = (
 )
 
 
+class BatchedPotential:
+    """``Z (C, k) -> (values (C,), gradients (C, k))``: a function of a
+    batch of latent vectors, evaluated for every row at once.
+
+    The functional inference API (``run_mcmc``, ``run_smc``, the
+    optimizers, ...) takes the JAX package's scalar ``f(z, *args)``; a
+    callable of this type is taken as it is instead
+    (:func:`.samplers.as_batched`).  ``hessian(z) -> (k, k)`` and
+    ``hessian_diagonal(z) -> (k,)`` are its curvature where it has a closed
+    form, else None.
+    """
+
+    def __init__(self, value_and_grad, hessian=None, hessian_diagonal=None):
+        self.value_and_grad = value_and_grad
+        self.hessian = hessian
+        self.hessian_diagonal = hessian_diagonal
+
+    def __call__(self, Z):
+        return self.value_and_grad(Z)
+
+
 def _matmul(L, Z):
     """L @ Z, with a bfloat16 L upcast to Z's dtype in row blocks."""
     if L.dtype != torch.bfloat16:
@@ -115,9 +136,17 @@ def zero_centering_offset(z0, L, nn_distances, d, mu):
     return torch.tensor(v0 / L.shape[0], dtype=torch.float32).item(), v0
 
 
-def density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
+def density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0, center=None):
     """Negative log posterior of the density model at z (a 0-d tensor);
-    same arguments as ``mellon_tpu.inference.losses.density_loss``."""
+    the arguments of ``mellon_tpu.inference.losses.density_loss``, and a
+    ``center`` around which the z-dependent part is computed (the same
+    function: :func:`make_density_value_and_grad_batch`).  The functional
+    inference API knows this function by identity and evaluates it in
+    closed form (:func:`.samplers.as_batched`)."""
+    if center is not None:
+        batch = make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_term,
+                                                  center=center)
+        return batch(z[None])[0][0]
     return density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term)[0]
 
 
@@ -173,10 +202,21 @@ def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_te
     the same function, but its rounding no longer grows with |F|: in
     float32 at 10⁶ cells the rounding of F = L z, amplified by cells where
     E is in the thousands, moves the potential by ~0.3–0.8 from one z to
-    the next, which freezes NUTS, while ΔF is small near c."""
+    the next, which freezes NUTS, while ΔF is small near c.
+
+    Returns a :class:`BatchedPotential` with the closed-form curvature
+    (:func:`density_hessian`, :func:`density_hessian_diagonal`)."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
+
+    def hessian(z):
+        return density_hessian(z, L, nn_distances, d, mu, group)
+
+    def hessian_diagonal(z):
+        return density_hessian_diagonal(z, L, nn_distances, d, mu, group)
+
     if center is not None:
-        return _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center)
+        return BatchedPotential(_centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center),
+                                hessian, hessian_diagonal)
     V, Vdr = V[:, None], Vdr[:, None]
 
     def value_and_grad(Z):
@@ -188,7 +228,7 @@ def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_te
             torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0), L.T @ (1 - E), group)
         return -(prior + likelihood), Z - grad_likelihood.T
 
-    return value_and_grad
+    return BatchedPotential(value_and_grad, hessian, hessian_diagonal)
 
 
 def _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center):
@@ -219,7 +259,8 @@ def _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center):
 def make_density_loglik_batch(L, nn_distances, d, mu):
     """``Z -> (log-likelihoods (C,), gradients (C, k))``: the likelihood
     term of the density loss alone, which SMC tempers (the JAX package
-    gets it as ``loglik_from_loss(density_loss)``)."""
+    gets it as ``loglik_from_loss(density_loss)``), a
+    :class:`BatchedPotential`."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
     V, Vdr = V[:, None], Vdr[:, None]
 
@@ -228,7 +269,7 @@ def make_density_loglik_batch(L, nn_distances, d, mu):
         E = torch.exp(F + V)
         return torch.sum((F + Vdr) - E, dim=0), (L.T @ (1 - E)).T
 
-    return loglik
+    return BatchedPotential(loglik)
 
 
 # rows of L per step of the Hessian and its diagonal: bounds their (rows, k)
@@ -321,7 +362,8 @@ def make_dimensionality_value_and_grad(L, distances, mu_dim, mu_dens):
 def make_dimensionality_value_and_grad_batch(L, distances, mu_dim, mu_dens, loss_offset_per_cell=0.0):
     """``Z -> (losses (C,), gradients (C, 2k))`` at the C rows of the
     flattened latents Z (C, 2k): the samplers' potential, one call per
-    leapfrog for every chain.  ``loss_offset_per_cell`` is added to each
+    leapfrog for every chain, a :class:`BatchedPotential` with the
+    closed-form curvature.  ``loss_offset_per_cell`` is added to each
     cell's log-likelihood inside the sum over cells (the zero-centring of
     :func:`zero_centered_dimensionality_potential`)."""
     ldist, counts, lgamma_counts = poisson_terms(distances)
@@ -338,7 +380,11 @@ def make_dimensionality_value_and_grad_batch(L, distances, mu_dim, mu_dens, loss
         grad = Zt - torch.cat([_rmatmul(L, v * dims), _rmatmul(L, u)])
         return loss, grad.T
 
-    return value_and_grad
+    return BatchedPotential(
+        value_and_grad,
+        lambda z: dimensionality_hessian(z, L, distances, mu_dim, mu_dens),
+        lambda z: dimensionality_hessian_diagonal(z, L, distances, mu_dim, mu_dens),
+    )
 
 
 def zero_centered_dimensionality_potential(z0, L, distances, mu_dim, mu_dens):

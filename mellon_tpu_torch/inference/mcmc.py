@@ -26,6 +26,14 @@ MAP Hessian H = R Rᵀ, which the density model gives in closed form
 (:func:`..losses.density_hessian`).  :func:`hessian_preconditioner` builds
 that whitening from any batched potential and Hessian, the cell-sharded
 ones of :func:`..parallel.shard_density_model` too.
+
+The public functions take the JAX package's arguments: a scalar
+``potential_fn(z, *potential_args)`` (:func:`.samplers.as_batched` says
+how it is evaluated; ``losses.density_loss`` in closed form), and a
+``torch.Generator`` where JAX takes a key.  The port's own forms, on a
+batched potential, a Hessian matrix or a Hessian function, keep names of
+their own: :func:`newton_polish_value_and_grad`, :func:`factor_hessian`,
+:func:`precondition_value_and_grad` and :func:`zero_centered_density_potential`.
 """
 
 import logging
@@ -36,8 +44,10 @@ import torch
 
 from ..ops.linalg import _cholesky_f64_rescue, _jittered_cholesky
 from ..parallel.mesh import broadcast_from_first_rank, check_sharding, sampling_block
-from .losses import density_hessian, make_density_value_and_grad_batch, zero_centering_offset
+from .losses import BatchedPotential, density_hessian, density_loss, zero_centering_offset
 from .samplers import (
+    ScalarPotential,
+    as_batched,
     as_draws,
     da_init,
     da_update,
@@ -46,6 +56,7 @@ from .samplers import (
     nuts_kernel,
     welford_init,
     welford_merge,
+    welford_update,
     welford_variance,
 )
 
@@ -53,7 +64,7 @@ logger = logging.getLogger("mellon_tpu_torch")
 
 BF16_SAMPLING = (
     "precision='bf16' sampling is not ported to mellon_tpu_torch: it failed the "
-    "JAX package's posterior-agreement check (ROADMAP, \"Do not port\")."
+    "JAX package's posterior-agreement check (ROADMAP Queue 3, \"bf16 sampling\")."
 )
 NEWTON_JITTER = 1e-6
 
@@ -98,6 +109,7 @@ def _check_steps_per_call(steps_per_call):
 
 
 def _kernel_for(value_and_grad, algorithm, max_tree_depth, num_leapfrog_steps):
+    """The batched transition of ``algorithm`` on a batched potential."""
     if algorithm == "nuts":
         return nuts_kernel(value_and_grad, max_tree_depth=int(max_tree_depth))
     if algorithm == "hmc":
@@ -105,11 +117,11 @@ def _kernel_for(value_and_grad, algorithm, max_tree_depth, num_leapfrog_steps):
     raise ValueError(f"Unknown MCMC algorithm: {algorithm}")
 
 
-class _Counted:
-    """The potential, counting the rows it evaluates."""
+class _Counted(BatchedPotential):
+    """A batched potential, counting the rows it evaluates."""
 
     def __init__(self, value_and_grad):
-        self.value_and_grad = value_and_grad
+        super().__init__(value_and_grad)
         self.rows = 0
 
     def __call__(self, Z):
@@ -137,7 +149,7 @@ def _sample(kernel, states, draws, step_size, inv_mass, num_samples, potential):
 
 
 def run_mcmc(
-    value_and_grad,
+    potential_fn,
     z0,
     generator,
     num_warmup=500,
@@ -150,16 +162,21 @@ def run_mcmc(
     target_accept=0.8,
     chain_sharding=None,
     steps_per_call=None,
+    potential_args=(),
 ):
-    """Sample from exp(−potential) with NUTS or HMC.
+    """Sample from exp(−potential_fn) with NUTS or HMC.
 
-    ``value_and_grad(Z (C, k)) -> (potentials (C,), gradients (C, k))``
-    evaluates every chain at once (:func:`..losses.make_density_value_and_grad_batch`,
-    or :func:`.samplers.batched_value_and_grad` of a row-wise torch
-    potential).  ``z0`` is (k,) or (num_chains, k); a single row is spread
-    over the chains by 0.1·N(0, I).  ``generator`` is a ``torch.Generator``
-    on z0's device (or a :class:`.samplers.Draws` source).  Returns an
-    :class:`MCMCResult` with samples of shape (num_chains, num_samples, k).
+    ``potential_fn(z, *potential_args)`` is the negative log density of one
+    latent vector z (k,); every chain is evaluated at once through
+    :func:`.samplers.as_batched` (``losses.density_loss`` in closed form, a
+    :class:`..losses.BatchedPotential` such as
+    ``losses.make_density_value_and_grad_batch(...)`` as it is, any other
+    torch function by ``torch.func.vmap``).  ``z0`` is (k,) or
+    (num_chains, k); a single row is spread over the chains by
+    0.1·N(0, I).  ``generator`` is a ``torch.Generator`` on z0's device (or
+    a :class:`.samplers.Draws` source), where the JAX package takes a key.
+    Returns an :class:`MCMCResult` with samples of shape (num_chains,
+    num_samples, k).
 
     With ``chain_sharding`` (a sharding of :mod:`..parallel`) every rank
     passes the same global ``z0`` and a generator seeded alike, runs its
@@ -174,7 +191,7 @@ def run_mcmc(
         z0 = z0 + 0.1 * draws.jitter((int(num_chains), z0.shape[1]), z0)
     num_chains = z0.shape[0]
     sharding, z0, draws = sampling_block(chain_sharding, z0, draws, "chains")
-    potential = _Counted(value_and_grad)
+    potential = _Counted(as_batched(potential_fn, potential_args))
     kernel = _kernel_for(potential, algorithm, max_tree_depth, num_leapfrog_steps)
     states = hmc_init(potential, z0)
     dim = z0.shape[1]
@@ -211,7 +228,7 @@ def run_mcmc(
 
 
 def resume_mcmc(
-    value_and_grad,
+    potential_fn,
     z0,
     generator,
     step_size,
@@ -221,17 +238,19 @@ def resume_mcmc(
     max_tree_depth=10,
     num_leapfrog_steps=32,
     chain_sharding=None,
+    potential_args=(),
 ):
     """Continue sampling from the chains' last positions ``z0`` with an
     adapted ``step_size`` and ``inv_mass_diag``: no warmup, fresh momenta
     (exact: the momentum is drawn anew at every transition anyway).
-    ``chain_sharding`` as in :func:`run_mcmc`, on any mesh: the run that
-    is resumed may have had another."""
+    ``potential_fn``, ``potential_args`` and ``chain_sharding`` as in
+    :func:`run_mcmc`, on any mesh: the run that is resumed may have had
+    another."""
     check_sharding(chain_sharding, "chain_sharding")
     draws = as_draws(generator)
     z0 = torch.atleast_2d(z0)
     sharding, z0, draws = sampling_block(chain_sharding, z0, draws, "chains")
-    potential = _Counted(value_and_grad)
+    potential = _Counted(as_batched(potential_fn, potential_args))
     kernel = _kernel_for(potential, algorithm, max_tree_depth, num_leapfrog_steps)
     states = hmc_init(potential, z0)
     step_size = torch.as_tensor(step_size, dtype=z0.dtype, device=z0.device)
@@ -241,11 +260,13 @@ def resume_mcmc(
         _sample(kernel, states, draws, step_size, inv_mass, int(num_samples), potential), sharding)
 
 
-def zero_centered_potential(z0, L, nn_distances, d, mu):
-    """The density potential re-centred to ~0 at ``z0``: returns the
-    batched ``value_and_grad`` with ``loss_offset_per_term`` = loss(z0)/n
-    (as a float32 number) and its z-dependent part computed around z0
-    (``center=z0``), and that offset.
+def zero_centered_potential(potential_fn, z0, potential_args):
+    """The density potential re-centred to ~0 at ``z0``: returns
+    ``(potential_fn, potential_args)`` with ``loss_offset_per_term`` =
+    loss(z0)/n (as a float32 number) and ``center`` z0 appended to the
+    operands, for which ``losses.density_loss`` computes its z-dependent
+    part around z0.  Any other potential, or one whose operands already
+    carry an offset, comes back unchanged, as in the JAX package.
 
     The potential is O(n), and one float32 ulp of it can exceed the energy
     differences of a leapfrog step, which then quantize; dual averaging
@@ -259,13 +280,23 @@ def zero_centered_potential(z0, L, nn_distances, d, mu):
     gives the same potential with its cells sharded
     (:func:`..parallel.shard_density_model`).
     """
-    offset, v0 = zero_centering_offset(z0, L, nn_distances, d, mu)
+    if potential_fn is not density_loss or len(potential_args) != 4:
+        return potential_fn, potential_args
+    L = potential_args[0]
+    offset, v0 = zero_centering_offset(z0, *potential_args)
     logger.info(
         "Zero-centering the sampled potential: loss(z0) = %.6g over %s cells "
         "(offset %.6g/term); reported potentials are relative to z0.",
         v0, f"{L.shape[0]:,}", offset,
     )
-    return make_density_value_and_grad_batch(L, nn_distances, d, mu, offset, center=z0), offset
+    return potential_fn, tuple(potential_args) + (offset, z0)
+
+
+def zero_centered_density_potential(z0, L, nn_distances, d, mu):
+    """:func:`zero_centered_potential` of the density loss as the batched
+    potential (a :class:`..losses.BatchedPotential`), and its offset."""
+    potential_fn, args = zero_centered_potential(density_loss, z0, (L, nn_distances, d, mu))
+    return as_batched(potential_fn, args), args[4]
 
 
 def sample_density_posterior(
@@ -300,7 +331,7 @@ def sample_density_posterior(
     if getattr(estimator, "pre_transformation", None) is not None:
         z0 = estimator.pre_transformation
     args = (estimator.L, estimator.nn_distances, estimator.d, estimator.mu)
-    value_and_grad, _ = zero_centered_potential(z0, *args)
+    value_and_grad, _ = zero_centered_density_potential(z0, *args)
     if generator is None:
         generator = torch.Generator(device=z0.device).manual_seed(int(seed))
     run = dict(num_warmup=num_warmup, num_samples=num_samples, num_chains=num_chains,
@@ -312,7 +343,7 @@ def sample_density_posterior(
         hessian = lambda z: density_hessian(z, *args)  # noqa: E731
         z_map, T, _ = hessian_preconditioner(value_and_grad, hessian, z0,
                                              chain_sharding=kwargs.get("chain_sharding"))
-        result = run_mcmc(preconditioned_potential(value_and_grad, T, z_map),
+        result = run_mcmc(precondition_value_and_grad(value_and_grad, T, z_map),
                           torch.zeros_like(z_map), generator, **run)
         result = result._replace(samples=unwhiten_samples(result.samples, T, z_map))
     elif precondition is not None:
@@ -335,7 +366,7 @@ def sample_density_posterior(
 
 def hessian_preconditioner(value_and_grad, hessian, z0, chain_sharding=None):
     """The whitening of Hessian-preconditioned sampling from a near-MAP z0:
-    the Newton-polished z* (:func:`newton_polish`) and T = R⁻ᵀ with
+    the Newton-polished z* (:func:`newton_polish_value_and_grad`) and T = R⁻ᵀ with
     H(z*) + NEWTON_JITTER·I = R Rᵀ.  Returns ``(z_map, T, (‖g‖ before, after))``.
 
     ``value_and_grad`` and ``hessian`` may be cell-sharded
@@ -348,8 +379,8 @@ def hessian_preconditioner(value_and_grad, hessian, z0, chain_sharding=None):
     which cells groups on other cards need not compute: z* and T are then
     rank 0's, sent to every rank in one broadcast.
     """
-    z_map, gn0, gn1 = newton_polish(value_and_grad, hessian, z0)
-    T = precondition_transform(hessian_cholesky(hessian(z_map)))
+    z_map, gn0, gn1 = newton_polish_value_and_grad(value_and_grad, hessian, z0)
+    T = precondition_transform(factor_hessian(hessian(z_map)))
     sharding = check_sharding(chain_sharding, "chain_sharding")
     if sharding is not None and sharding.size > 1:
         both = broadcast_from_first_rank(torch.cat([z_map[None], T]))
@@ -368,7 +399,49 @@ def autograd_hessian(potential):
     return hessian
 
 
-def hessian_cholesky(H, jitter=NEWTON_JITTER):
+def _hvp_hessian(potential_fn, potential_args, z, block):
+    """The Hessian of the scalar ``potential_fn(z, *potential_args)`` at z
+    from forward-over-reverse Hessian-vector products with the basis
+    vectors, ``block`` of them at a time (the JAX package's
+    ``_hessian_block``)."""
+    grad = torch.func.grad(lambda v: potential_fn(v, *potential_args))
+    k = z.shape[-1]
+    eye = torch.eye(k, dtype=z.dtype, device=z.device)
+
+    def hvp(e):
+        return torch.func.jvp(grad, (z,), (e,))[1]
+
+    return torch.cat([torch.func.vmap(hvp)(eye[s : s + block]) for s in range(0, k, block)])
+
+
+def hessian_of(potential_fn, potential_args=(), block=512):
+    """``z -> H``, the Hessian of ``potential_fn(z, *potential_args)``: the
+    closed form where its batched form (:func:`.samplers.as_batched`) has
+    one (the density loss's :func:`..losses.density_hessian`, also the
+    cell-sharded one), else blocked Hessian-vector products of the scalar
+    function; a :class:`..losses.BatchedPotential` without one raises."""
+    batched = as_batched(potential_fn, potential_args)
+    if batched.hessian is not None:
+        return batched.hessian
+    if isinstance(potential_fn, BatchedPotential):
+        raise TypeError(
+            "This batched potential has no Hessian; pass the scalar potential_fn."
+        )
+    return lambda z: _hvp_hessian(potential_fn, potential_args, z, int(block))
+
+
+def hessian_cholesky(potential_fn, z_map, jitter, *potential_args, block=512, host_f64=True):
+    """Lower Cholesky factor R of the potential's Hessian at ``z_map``
+    (H + jitter·I = R Rᵀ), as the JAX package's: H from
+    :func:`hessian_of` (``block`` basis vectors per vmapped group of
+    Hessian-vector products), factored by :func:`factor_hessian` in
+    float64 on the device, which the JAX package does on the host.
+    ``host_f64`` is accepted and ignored: the factor is always the float64
+    one."""
+    return factor_hessian(hessian_of(potential_fn, potential_args, block)(z_map), float(jitter))
+
+
+def factor_hessian(H, jitter=NEWTON_JITTER):
     """Lower Cholesky factor R of the Hessian H (H + jitter·I = R Rᵀ), in
     H's dtype.  H is symmetrized and factored in float64 on its device,
     the jitter raised ×10 while the factorization fails (up to 8 tries,
@@ -391,7 +464,23 @@ def precondition_transform(R):
     return torch.linalg.solve_triangular(R64.T, eye, upper=True).to(R.dtype)
 
 
-def preconditioned_potential(value_and_grad, T, z_map):
+def preconditioned_potential(potential_fn):
+    """``pot(w, T, z_map, *args)`` = ``potential_fn(z_map + T w, *args)``,
+    the JAX package's wrapper (T = R⁻ᵀ, :func:`precondition_transform`).
+    It remembers its base: batched, it is
+    :func:`precondition_value_and_grad` of the base's batched form, so a
+    base of ``losses.density_loss`` runs in closed form."""
+
+    def pot(w, T, z_map, *args):
+        return potential_fn(z_map + T @ w, *args)
+
+    def batched(T, z_map, *args):
+        return precondition_value_and_grad(as_batched(potential_fn, args), T, z_map)
+
+    return ScalarPotential(pot, batched)
+
+
+def precondition_value_and_grad(value_and_grad, T, z_map):
     """The potential of w with z = z_map + T w, batched: the gradient in w
     is Tᵀ∇z, row by row g @ T."""
 
@@ -399,7 +488,7 @@ def preconditioned_potential(value_and_grad, T, z_map):
         values, grads = value_and_grad(z_map + W @ T.T)
         return values, grads @ T
 
-    return potential
+    return BatchedPotential(potential)
 
 
 def unwhiten_samples(samples_w, T, z_map, block=65536):
@@ -410,7 +499,19 @@ def unwhiten_samples(samples_w, T, z_map, block=65536):
     return out.reshape(shape)
 
 
-def newton_polish(value_and_grad, hessian, z0, iters=10, jitter=NEWTON_JITTER, tol=1e-8):
+def newton_polish(potential_fn, z0, potential_args=(), iters=10, jitter=NEWTON_JITTER, tol=1e-8):
+    """Newton iterations from a near-MAP point z0 of ``potential_fn(z,
+    *potential_args)``, as the JAX package's: the potential through
+    :func:`.samplers.as_batched`, the Hessian through :func:`hessian_of`
+    (:func:`newton_polish_value_and_grad`).  Returns (z, ‖g‖ before,
+    ‖g‖ after)."""
+    return newton_polish_value_and_grad(
+        as_batched(potential_fn, potential_args), hessian_of(potential_fn, potential_args), z0,
+        iters=iters, jitter=jitter, tol=tol)
+
+
+def newton_polish_value_and_grad(value_and_grad, hessian, z0, iters=10, jitter=NEWTON_JITTER,
+                                 tol=1e-8):
     """Newton iterations from a near-MAP point z0 of the batched potential,
     with ``hessian(z) -> (k, k)``: each step factors H + jitter·I in the
     potential's dtype (in float64 when that fails) and halves the step up
@@ -432,7 +533,7 @@ def newton_polish(value_and_grad, hessian, z0, iters=10, jitter=NEWTON_JITTER, t
         H = hessian(z)
         R, ok = _jittered_cholesky(0.5 * (H + H.T), jitter)
         if not bool(ok):
-            R = hessian_cholesky(H, jitter)
+            R = factor_hessian(H, jitter)
         dz = torch.cholesky_solve(g[:, None], R)[:, 0]
         step = 1.0
         for _try in range(5):

@@ -4,6 +4,13 @@
 adam (:func:`minimize_adam`) follows ``optax.adam`` with the JAX package's
 schedule; its update is :func:`adam_step`, which ADVI reuses.
 
+:func:`minimize_lbfgs` (= :func:`minimize_lbfgsb`, as in the JAX package)
+and :func:`minimize_adam` take the JAX package's scalar ``loss_func(z,
+*loss_args)``; :func:`value_and_grad_of` says how it is evaluated (the
+density loss in closed form).  The estimators call the port's forms on a
+``value_and_grad(z) -> (loss, gradient)`` directly:
+:func:`minimize_lbfgs_value_and_grad` and :func:`minimize_adam_value_and_grad`.
+
 The JAX package runs ``optax.lbfgs`` inside one ``lax.while_loop``.  This
 is the same method written for PyTorch: memory 10, the two-loop recursion
 with the identity scaled by sᵀy/yᵀy (and by min(1, 1/‖g‖) on the first
@@ -32,6 +39,9 @@ from collections import deque, namedtuple
 
 import torch
 
+from .losses import BatchedPotential, density_loss, make_density_value_and_grad
+from .samplers import ScalarPotential, as_batched, density_operands
+
 logger = logging.getLogger("mellon_tpu_torch")
 
 DEFAULT_OPTIMIZER = "L-BFGS-B"
@@ -58,7 +68,7 @@ LBFGSResult = namedtuple(
     defaults=(None,),
 )
 ResultsLoss = namedtuple("Results", "pre_transformation opt_state loss")
-AdamResult = namedtuple("AdamResult", "pre_transformation opt_state losses")
+Results = namedtuple("Results", "pre_transformation opt_state losses")
 AdamState = namedtuple("AdamState", "count mu nu")
 _Trial = namedtuple("_Trial", "step phi dphi gnorm z value grad")
 
@@ -191,7 +201,7 @@ def bf16_operands(loss_args):
     )
 
 
-def minimize_lbfgs(
+def minimize_lbfgs_value_and_grad(
     value_and_grad,
     initial_value,
     max_iter=DEFAULT_LBFGS_MAX_ITER,
@@ -257,6 +267,34 @@ def _autograd_value_and_grad(loss_func, *loss_args):
     return value_and_grad
 
 
+def _one_row(value_and_grad):
+    """A batched potential as ``z -> (loss, gradient)`` at one latent
+    vector (any shape: it is evaluated as a batch of one)."""
+
+    def fun(z):
+        values, grads = value_and_grad(z[None])
+        return values[0], grads[0]
+
+    return fun
+
+
+def value_and_grad_of(loss_func, *loss_args):
+    """``z -> (loss, gradient)`` of ``loss_func(z, *loss_args)`` for the
+    optimizers, by the routes of :func:`.samplers.as_batched`: the density
+    loss in closed form (:func:`.losses.make_density_value_and_grad`,
+    which also reads a bfloat16 L, or the centred batch form), a
+    :class:`.losses.BatchedPotential` or a
+    :class:`.samplers.ScalarPotential` at one row of its batched form, any
+    other scalar loss by autograd."""
+    if loss_func is density_loss:
+        L, nn_distances, d, mu, offset, center = density_operands(loss_args)
+        if center is None:
+            return make_density_value_and_grad(L, nn_distances, d, mu, offset)
+    if loss_func is density_loss or isinstance(loss_func, (BatchedPotential, ScalarPotential)):
+        return _one_row(as_batched(loss_func, loss_args))
+    return _autograd_value_and_grad(loss_func, *loss_args)
+
+
 def minimize_lbfgsb(
     loss_func,
     initial_value,
@@ -266,21 +304,25 @@ def minimize_lbfgsb(
     loss_args=(),
     precision=None,
 ):
-    """:func:`minimize_lbfgs` under the JAX package's name and signature:
-    ``loss_func(z, *loss_args)`` is a scalar torch loss, differentiated by
-    autograd; ``precision="bf16"`` runs the two phases on ``loss_args``
-    (:func:`bf16_operands`); ``jit`` is ignored.  Returns ``(pre_transformation,
-    opt_state, loss)`` with the :class:`LBFGSResult` as ``opt_state``."""
-    result = minimize_lbfgs(
-        _autograd_value_and_grad(loss_func, *loss_args),
+    """:func:`minimize_lbfgs_value_and_grad` under the JAX package's name
+    and signature: ``loss_func(z, *loss_args)`` is a scalar torch loss,
+    evaluated by :func:`value_and_grad_of`; ``precision="bf16"`` runs the
+    two phases on ``loss_args`` (:func:`bf16_operands`); ``jit`` is
+    ignored.  Returns ``(pre_transformation, opt_state, loss)`` with the
+    :class:`LBFGSResult` as ``opt_state``."""
+    result = minimize_lbfgs_value_and_grad(
+        value_and_grad_of(loss_func, *loss_args),
         initial_value,
         max_iter=max_iter,
         tol=tol,
         precision=precision,
-        make_value_and_grad=lambda *args: _autograd_value_and_grad(loss_func, *args),
+        make_value_and_grad=lambda *args: value_and_grad_of(loss_func, *args),
         loss_args=tuple(loss_args),
     )
     return ResultsLoss(result.pre_transformation, result, result.loss)
+
+
+minimize_lbfgs = minimize_lbfgsb
 
 
 def _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size):
@@ -353,6 +395,21 @@ def adam_step(params, grads, state, init_learn_rate):
 
 
 def minimize_adam(
+    loss_func,
+    initial_value,
+    n_iter=DEFAULT_N_ITER,
+    init_learn_rate=DEFAULT_INIT_LEARN_RATE,
+    jit=DEFAULT_JIT,
+    loss_args=(),
+):
+    """adam on the scalar ``loss_func(z, *loss_args)`` (evaluated by
+    :func:`value_and_grad_of`), as the JAX package's; ``jit`` is accepted
+    and ignored.  Returns :class:`Results` (:func:`minimize_adam_value_and_grad`)."""
+    return minimize_adam_value_and_grad(value_and_grad_of(loss_func, *loss_args), initial_value,
+                                        n_iter=n_iter, init_learn_rate=init_learn_rate)
+
+
+def minimize_adam_value_and_grad(
     value_and_grad,
     initial_value,
     n_iter=DEFAULT_N_ITER,
@@ -369,4 +426,4 @@ def minimize_adam(
         losses.append(value)
         params, state = adam_step(params, (grad,), state, init_learn_rate)
     losses = torch.stack(losses) if losses else initial_value.new_empty(0)
-    return AdamResult(params[0], state, losses)
+    return Results(params[0], state, losses)

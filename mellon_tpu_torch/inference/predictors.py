@@ -427,9 +427,9 @@ class ExpPredictor(Predictor):
 
 class PredictorTime(Predictor):
     """A predictor whose last input column is time.  Each method takes the
-    states x (n, d − 1) and ``time``: a number for every row, or one time
-    per row; ``multi_time`` (T,) evaluates it at every time of a grid,
-    shape (n, T, ...)."""
+    states (n, d − 1), named ``Xnew`` or ``x`` as in the JAX package, and
+    ``time``: a number for every row, or one time per row; ``multi_time``
+    (T,) evaluates it at every time of a grid, shape (n, T, ...)."""
 
     def _with_time(self, x, time):
         return validate_time_x(
@@ -438,10 +438,10 @@ class PredictorTime(Predictor):
         )
 
     @make_multi_time_argument
-    def mean(self, x, time=None, normalize=False):
-        """Conditional mean at (x, time), optionally normalized by
+    def mean(self, Xnew, time=None, normalize=False):
+        """Conditional mean at (Xnew, time), optionally normalized by
         log(n_obs), the cells per time point."""
-        x = self._with_time(x, time)
+        x = self._with_time(Xnew, time)
         normalize = validate_bool(normalize, "normalize")
         if not normalize:
             return _chunked_rows(self._mean, x)
@@ -457,25 +457,25 @@ class PredictorTime(Predictor):
     __call__ = mean
 
     @make_multi_time_argument
-    def covariance(self, x, time=None, diag=True):
-        """Posterior covariance of the conditional GP at (x, time)."""
-        x = self._with_time(x, time)
+    def covariance(self, Xnew, time=None, diag=True):
+        """Posterior covariance of the conditional GP at (Xnew, time)."""
+        x = self._with_time(Xnew, time)
         if diag:
             return _chunked_rows(lambda b: self._covariance(b, diag=True), x)
         return self._covariance(x, diag=False)
 
     @make_multi_time_argument
-    def mean_covariance(self, x, time=None, diag=True):
+    def mean_covariance(self, Xnew, time=None, diag=True):
         """Covariance of the mean from the latents' uncertainty."""
-        x = self._with_time(x, time)
+        x = self._with_time(Xnew, time)
         if diag:
             return _chunked_rows(lambda b: self._mean_covariance(b, diag=True), x)
         return self._mean_covariance(x, diag=False)
 
     @make_multi_time_argument
-    def uncertainty(self, x, time=None, diag=True):
+    def uncertainty(self, Xnew, time=None, diag=True):
         """Total predictive uncertainty: covariance + mean_covariance."""
-        x = self._with_time(x, time)
+        x = self._with_time(Xnew, time)
         return self._covariance(x, diag=diag) + self._mean_covariance(x, diag=diag)
 
     @make_multi_time_argument

@@ -20,6 +20,24 @@ runs the chains in that lockstep directly:
 Every random number comes from a :class:`Draws` source, which the tests
 replace with one that replays the JAX package's key schedule.
 
+The kernels take the JAX package's ``potential_fn``: a scalar function of
+one latent vector, ``f(z (k,), *args)``.  :func:`as_batched` turns it into
+the batched call the lockstep leaf loop makes, by one of three routes,
+chosen by what the callable is and never by what it returns:
+
+* a :class:`.losses.BatchedPotential` (the port's own batched potentials:
+  :func:`batched_value_and_grad`, ``losses.make_density_value_and_grad_batch``,
+  the preconditioned and sharded ones) is taken as it is;
+* ``losses.density_loss`` itself, known by identity, becomes the closed
+  form ``make_density_value_and_grad_batch(*args)``, as the JAX package's
+  ``zero_centered_potential`` knows it; a :class:`ScalarPotential` (a
+  scalar function this package builds, such as ``preconditioned_potential``'s)
+  brings its own batched form, built from its base's;
+* any other scalar function is vmapped over the chains with its
+  gradient, ``torch.func.vmap(torch.func.grad_and_value(f))``.  A
+  function that cannot be vmapped raises; nothing loops over the rows
+  in its place.
+
 One deliberate divergence: a NUTS transition counts the leapfrog steps it
 really took (:func:`_subtree_steps`).  The JAX package adds 2**depth for a
 subtree even when it stopped early on a U-turn or a divergence, which
@@ -28,10 +46,15 @@ pushes dual averaging's step size down.
 """
 
 import copy
+import logging
 import math
 from typing import NamedTuple
 
 import torch
+
+from .losses import BatchedPotential, density_loss, make_density_value_and_grad_batch
+
+logger = logging.getLogger("mellon_tpu_torch")
 
 DIVERGENCE_THRESHOLD = 1000.0
 
@@ -127,7 +150,7 @@ def as_draws(generator):
 def batched_value_and_grad(potential):
     """A row-wise potential ``Z (C, k) -> (C,)`` in torch ops as the
     samplers' ``Z -> (values (C,), grads (C, k))``, by autograd (for small
-    targets such as the tests' Gaussians)."""
+    targets such as the tests' Gaussians): a :class:`.losses.BatchedPotential`."""
 
     def value_and_grad(Z):
         with torch.enable_grad():
@@ -136,7 +159,82 @@ def batched_value_and_grad(potential):
             (grads,) = torch.autograd.grad(values.sum(), Zg)
         return values.detach(), grads
 
-    return value_and_grad
+    return BatchedPotential(value_and_grad)
+
+
+class ScalarPotential:
+    """A scalar function ``f(z, *args)`` of this package that knows its
+    batched form: ``batched(*args)`` returns the
+    :class:`.losses.BatchedPotential` of the same function (built from
+    the form of the function it wraps), which :func:`as_batched` takes in
+    place of vmapping ``f``."""
+
+    def __init__(self, fn, batched):
+        self.fn = fn
+        self.batched = batched
+
+    def __call__(self, z, *args):
+        return self.fn(z, *args)
+
+
+def density_operands(args):
+    """``(L, nn_distances, d, mu, loss_offset_per_term, center)`` of
+    ``density_loss``'s operands ``args``, the defaults filled in."""
+    L, nn_distances, d, mu, offset, center = tuple(args) + (0.0, None)[len(args) - 4:]
+    return L, nn_distances, d, mu, offset, center
+
+
+def as_batched(potential_fn, potential_args=()):
+    """The :class:`.losses.BatchedPotential` ``Z (C, k) -> (values (C,),
+    gradients (C, k))`` of the scalar ``potential_fn(z, *potential_args)``,
+    by the three routes of this module's note."""
+    if isinstance(potential_fn, BatchedPotential):
+        if potential_args:
+            raise TypeError(
+                "A BatchedPotential takes no operands: bind them when it is built."
+            )
+        return potential_fn
+    if potential_fn is density_loss:
+        L, nn_distances, d, mu, offset, center = density_operands(potential_args)
+        return make_density_value_and_grad_batch(L, nn_distances, d, mu, offset, center=center)
+    if isinstance(potential_fn, ScalarPotential):
+        return potential_fn.batched(*potential_args)
+    in_dims = (0,) + (None,) * len(potential_args)
+    grad_and_value = torch.func.vmap(torch.func.grad_and_value(potential_fn), in_dims=in_dims)
+
+    def value_and_grad(Z):
+        grads, values = grad_and_value(Z, *potential_args)
+        return values, grads
+
+    return BatchedPotential(value_and_grad)
+
+
+class _BatchedValues(torch.autograd.Function):
+    """The values of a batched potential as a function autograd can
+    differentiate, by its own gradients: ``apply(Z, value_and_grad)``."""
+
+    @staticmethod
+    def forward(ctx, Z, value_and_grad):
+        values, grads = value_and_grad(Z.detach())
+        ctx.save_for_backward(grads)
+        return values
+
+    @staticmethod
+    def backward(ctx, grad_values):
+        (grads,) = ctx.saved_tensors
+        return grad_values.reshape((-1,) + (1,) * (grads.dim() - 1)) * grads, None
+
+
+def batched_values(potential_fn, potential_args=()):
+    """``Z (S, ...) -> values (S,)`` of the scalar ``potential_fn(z,
+    *potential_args)`` at each row, differentiable by autograd through the
+    gradients of :func:`as_batched` (ADVI's Monte-Carlo ELBO)."""
+    value_and_grad = as_batched(potential_fn, potential_args)
+
+    def values(Z):
+        return _BatchedValues.apply(Z, value_and_grad)
+
+    return values
 
 
 def _where(mask, new, old):
@@ -200,16 +298,20 @@ class HMCInfo(NamedTuple):
     energy: torch.Tensor
 
 
-def hmc_init(value_and_grad, z0):
-    """The chains' state at the rows of ``z0`` (C, k)."""
-    potential, grad = value_and_grad(z0)
+def hmc_init(potential_fn, z0):
+    """The chains' state at the rows of ``z0`` (C, k); ``potential_fn`` as
+    in :func:`as_batched`."""
+    potential, grad = as_batched(potential_fn)(z0)
     return HMCState(z0, potential, grad)
 
 
-def hmc_kernel(value_and_grad, num_steps=32, divergence_threshold=DIVERGENCE_THRESHOLD):
+def hmc_kernel(potential_fn, num_steps=32, divergence_threshold=DIVERGENCE_THRESHOLD):
     """Fixed-trajectory-length HMC with a Metropolis correction; returns
-    ``step(state, draws, step_size, inv_mass_diag) -> (state, info)``.  It
-    reads nothing on the host (``step.host_reads`` stays 0)."""
+    ``step(state, draws, step_size, inv_mass_diag) -> (state, info)`` over
+    a batch of chains (``draws`` a :class:`Draws` source).  It reads
+    nothing on the host (``step.host_reads`` stays 0).  ``potential_fn``
+    as in :func:`as_batched`."""
+    value_and_grad = as_batched(potential_fn)
 
     def step(state, draws, step_size, inv_mass_diag):
         z = state.z
@@ -291,12 +393,14 @@ def _subtree_steps(leaves_run, depth):
     return leaves_run
 
 
-def nuts_kernel(value_and_grad, max_tree_depth=10, divergence_threshold=DIVERGENCE_THRESHOLD):
+def nuts_kernel(potential_fn, max_tree_depth=10, divergence_threshold=DIVERGENCE_THRESHOLD):
     """One NUTS transition of every chain: iterative tree doubling with
     multinomial sampling.  Returns ``step(state, draws, step_size,
     inv_mass_diag) -> (state, info)``; ``step.host_reads`` counts the
     host reads of the active mask (one per leaf after the first of a
-    doubling, and one per doubling after the first)."""
+    doubling, and one per doubling after the first).  ``potential_fn`` as
+    in :func:`as_batched`."""
+    value_and_grad = as_batched(potential_fn)
 
     def any_active(active):
         step.host_reads += 1

@@ -10,8 +10,15 @@ resampling, and HMC mutation of all particles at once; the host reads the
 stage's four scalars once (β, ESS, acceptance, evidence increment) for the
 step-size controller, the log and the stop at β = 1.
 
-Log-likelihoods and priors are batched: ``Z (P, k) -> (values (P,),
-gradients (P, k))``.
+:func:`run_smc`, :func:`loglik_from_loss` and :func:`laplace_start` take
+the JAX package's scalar functions of one latent vector, ``loglik_fn(z,
+*loglik_args)`` and ``loss_fn(z, *loss_args)``; the sweep evaluates every
+particle at once through their batched forms (:func:`.samplers.as_batched`:
+``Z (P, k) -> (values (P,), gradients (P, k))``; the density loss in closed
+form).  A custom ``prior_logpdf`` is a scalar ``q(z)`` or a batched
+potential; ``prior_sample(draws, P)`` draws through the sweep's
+:class:`.samplers.Draws` source (its ``generator`` is the
+``torch.Generator``), where the JAX package hands it a key.
 
 ``mesh=`` (or ``particle_sharding=``) splits the particles in blocks over
 the ranks of a mesh axis.  A rank evaluates and mutates its block; what is
@@ -32,15 +39,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .laplace import compute_laplace_std
-from .losses import (
-    density_hessian_diagonal,
-    make_density_loglik_batch,
-    make_density_value_and_grad_batch,
-)
+from .laplace import hessian_diagonal_of, laplace_std_from_diagonal
+from .losses import BatchedPotential, density_loss, make_density_loglik_batch
 from ..parallel.mesh import Mesh, chain_sharding, check_sharding, sampling_block
-from .optimizers import minimize_lbfgs
-from .samplers import as_draws, hmc_init, hmc_kernel
+from .optimizers import _one_row, minimize_lbfgs_value_and_grad
+from .samplers import ScalarPotential, as_batched, as_draws, hmc_init, hmc_kernel
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -59,16 +62,38 @@ SMC_LAPLACE_AUTO_N = 10_000
 _LOG_2PI = math.log(2 * math.pi)
 
 
-def loglik_from_loss(value_and_grad):
-    """The likelihood term of a negative log posterior with the N(0, I)
-    prior of the whitened latents: −loss − log prior, batched."""
+def _loglik_batch(value_and_grad):
+    """−loss − log prior of a batched negative log posterior."""
 
     def loglik(Z):
         values, grads = value_and_grad(Z)
         prior = -0.5 * torch.sum(Z * Z, dim=1) - 0.5 * Z.shape[1] * _LOG_2PI
         return -values - prior, -grads + Z
 
-    return loglik
+    return BatchedPotential(loglik)
+
+
+def loglik_from_loss(loss_fn):
+    """The likelihood term of the negative log posterior ``loss_fn(z,
+    *args)`` with the N(0, I) prior of the whitened latents: −loss − log
+    prior, the scalar ``loglik(z, *args)`` of the JAX package.  Batched
+    (:func:`.samplers.as_batched`) it is the loss's batched form less the
+    prior; of the density loss, its likelihood term in closed form
+    (:func:`.losses.make_density_loglik_batch`).  A batched ``loss_fn``
+    gives the batched log-likelihood."""
+    if isinstance(loss_fn, BatchedPotential):
+        return _loglik_batch(loss_fn)
+
+    def loglik(z, *args):
+        prior = -0.5 * torch.sum(z * z) - 0.5 * z.numel() * _LOG_2PI
+        return -loss_fn(z, *args) - prior
+
+    def batched(*args):
+        if loss_fn is density_loss and len(args) == 4:
+            return make_density_loglik_batch(*args)
+        return _loglik_batch(as_batched(loss_fn, args))
+
+    return ScalarPotential(loglik, batched)
 
 
 class SMCResult(NamedTuple):
@@ -128,7 +153,8 @@ def _smc_stage(loglik_fn, prior_logpdf, particles, draws, beta, step_size, targe
                min_step, num_mutation_steps, num_leapfrog_steps, sharding, num_particles):
     """One tempering stage: weights, next β, evidence and ESS, systematic
     resampling, HMC mutation of this rank's block of the ``num_particles``
-    under ``sharding``.  Everything stays on the device."""
+    under ``sharding``.  Everything stays on the device; ``loglik_fn`` and
+    ``prior_logpdf`` are batched."""
     dim = particles.shape[1]
     log_lik = sharding.gather(loglik_fn(particles)[0])
     new_beta = _next_beta(log_lik, beta, target_ess, min_step)
@@ -144,6 +170,7 @@ def _smc_stage(loglik_fn, prior_logpdf, particles, draws, beta, step_size, targe
         lik, lik_grad = loglik_fn(Z)
         return -(prior + new_beta * lik), -(prior_grad + new_beta * lik_grad)
 
+    potential = BatchedPotential(potential)
     kernel = hmc_kernel(potential, num_steps=num_leapfrog_steps)
     state = hmc_init(potential, particles)
     unit_mass = torch.ones(dim, dtype=particles.dtype, device=particles.device)
@@ -167,18 +194,21 @@ def run_smc(
     max_stages=100,
     prior_sample=None,
     prior_logpdf=None,
-    dtype=None,
+    loglik_args=(),
     mesh=None,
     particle_sharding=None,
+    dtype=None,
 ):
     """Anneal particles from N(0, I) (or a custom prior) to the posterior
     ∝ prior·exp(loglik).
 
-    ``loglik_fn`` and a custom ``prior_logpdf`` map ``Z (P, dim)`` to
-    ``(values (P,), gradients (P, dim))``; ``prior_sample(draws, P)``
+    ``loglik_fn(z, *loglik_args)`` and a custom ``prior_logpdf(z)`` are
+    scalar functions of one latent vector (or batched potentials), taken
+    through :func:`.samplers.as_batched`; ``prior_sample(draws, P)``
     draws the start through the :class:`.samplers.Draws` source made from
-    ``generator``.  The default prior's particles take ``dtype`` (the
-    default torch dtype if None) on the generator's device.  Every stage's
+    ``generator`` (a ``torch.Generator`` where the JAX package takes a
+    key).  The default prior's particles take ``dtype`` (the default
+    torch dtype if None) on the generator's device.  Every stage's
     step is floored at (remaining gap)/(stages left), so β reaches 1
     within ``max_stages``.  Returns an :class:`SMCResult`; ``log_evidence``
     estimates log ∫ prior(z)·exp(loglik(z)) dz.
@@ -202,6 +232,7 @@ def run_smc(
     if sharding is None and mesh is not None:
         sharding = chain_sharding(mesh)
     draws = as_draws(generator)
+    loglik_fn = as_batched(loglik_fn, loglik_args)
     if prior_sample is None:
         like = torch.empty(0, dtype=dtype or torch.get_default_dtype(),
                            device=torch.device(draws.generator.device))
@@ -209,7 +240,7 @@ def run_smc(
         prior_fn = _std_normal_logpdf
     else:
         particles = prior_sample(draws, num_particles)
-        prior_fn = prior_logpdf
+        prior_fn = as_batched(prior_logpdf)
     sharding, particles, draws = sampling_block(sharding, particles, draws, "particles")
 
     def scalar(value):
@@ -263,19 +294,43 @@ def run_smc(
     )
 
 
-def _single(value_and_grad):
-    """A batched potential as ``z (k,) -> (loss, gradient)`` for L-BFGS."""
+def laplace_start(loss_fn, loss_args, z0, z_map=None):
+    """The Laplace start of :func:`run_smc` for the scalar negative log
+    posterior ``loss_fn(z, *loss_args)``, as the JAX package's:
+    ``(adjusted_loglik, prior kwargs)``, where ``adjusted_loglik(z, *args)``
+    = −loss − log q is a scalar to pass with ``loglik_args=loss_args`` and
+    q = N(z*, diag σ²).  The loss is evaluated by
+    :func:`.samplers.as_batched` and its Hessian diagonal by
+    :func:`.laplace.hessian_diagonal_of` (the density loss in closed form),
+    as :func:`laplace_start_value_and_grad` takes them batched."""
+    _, prior = laplace_start_value_and_grad(
+        as_batched(loss_fn, loss_args), z0, hessian_diagonal_of(loss_fn, loss_args), z_map)
+    q_logpdf = prior["prior_logpdf"]
 
-    def fun(z):
-        values, grads = value_and_grad(z[None])
-        return values[0], grads[0]
+    def adjusted_loglik(z, *args):
+        return -loss_fn(z, *args) - q_logpdf(z)
 
-    return fun
+    def adjusted_batched(*args):
+        return _adjusted_loglik(as_batched(loss_fn, args), q_logpdf)
+
+    return ScalarPotential(adjusted_loglik, adjusted_batched), prior
 
 
-def laplace_start(value_and_grad, z0, hessian_diagonal, z_map=None):
+def _adjusted_loglik(value_and_grad, q_logpdf):
+    """log π(z) − log q(z), batched."""
+    q_batch = as_batched(q_logpdf)
+
+    def adjusted_loglik(Z):
+        values, grads = value_and_grad(Z)
+        q, q_grad = q_batch(Z)
+        return -values - q, -grads - q_grad
+
+    return BatchedPotential(adjusted_loglik)
+
+
+def laplace_start_value_and_grad(value_and_grad, z0, hessian_diagonal, z_map=None):
     """The Laplace start of :func:`run_smc`: ``(adjusted loglik, prior
-    kwargs)`` for q = N(z*, diag σ²) and log π(z) − log q(z).
+    kwargs)`` for q = N(z*, diag σ²) and log π(z) − log q(z), batched.
 
     ``value_and_grad`` is the batched negative log posterior and
     ``hessian_diagonal(z) -> (k,)`` its Hessian's diagonal.  ``z_map``
@@ -285,9 +340,9 @@ def laplace_start(value_and_grad, z0, hessian_diagonal, z_map=None):
     the prior start, on a short, well-mixed annealing path.
     """
     if z_map is None:
-        z_map = minimize_lbfgs(_single(value_and_grad), z0).pre_transformation
+        z_map = minimize_lbfgs_value_and_grad(_one_row(value_and_grad), z0).pre_transformation
     dim = int(z_map.shape[-1])
-    sigma = compute_laplace_std(hessian_diagonal(z_map))
+    sigma = laplace_std_from_diagonal(hessian_diagonal(z_map))
     n_low, n_high = torch.stack([
         torch.count_nonzero(sigma < LAPLACE_SIGMA_MIN),
         torch.count_nonzero(sigma > LAPLACE_SIGMA_MAX),
@@ -316,16 +371,19 @@ def laplace_start(value_and_grad, z0, hessian_diagonal, z_map=None):
     def q_sample(draws, n):
         return z_map[None, :] + sigma[None, :] * draws.normal((n, dim), z_map)
 
-    def q_logpdf(Z):
+    def q_logpdf_batch(Z):
         u = (Z - z_map) / sigma
         return -0.5 * torch.sum(u * u, dim=1) - log_sigma_sum - 0.5 * dim * _LOG_2PI, -u / sigma
 
-    def adjusted_loglik(Z):
-        values, grads = value_and_grad(Z)
-        q, q_grad = q_logpdf(Z)
-        return -values - q, -grads - q_grad
+    def q_logpdf(z):
+        u = (z - z_map) / sigma
+        return -0.5 * torch.sum(u * u) - log_sigma_sum - 0.5 * dim * _LOG_2PI
 
-    return adjusted_loglik, dict(prior_sample=q_sample, prior_logpdf=q_logpdf)
+    # log q: a scalar that knows its batched form
+    batched = BatchedPotential(q_logpdf_batch)
+    q_logpdf = ScalarPotential(q_logpdf, lambda: batched)
+    return _adjusted_loglik(value_and_grad, q_logpdf), dict(prior_sample=q_sample,
+                                                            prior_logpdf=q_logpdf)
 
 
 def smc_density_posterior(estimator, num_particles=1024, seed=0, start="auto", num_sweeps=1,
@@ -355,10 +413,8 @@ def smc_density_posterior(estimator, num_particles=1024, seed=0, start="auto", n
         )
     if start == "laplace":
         loglik, prior_kwargs = laplace_start(
-            make_density_value_and_grad_batch(*args), z0,
-            lambda z: density_hessian_diagonal(z, *args),
-            z_map=getattr(estimator, "pre_transformation", None),
-        )
+            density_loss, args, z0, z_map=getattr(estimator, "pre_transformation", None))
+        loglik = as_batched(loglik, args)
     elif start == "prior":
         loglik, prior_kwargs = make_density_loglik_batch(*args), {}
     else:

@@ -31,28 +31,30 @@ import torch
 
 from .. import config
 from ..config import resolve_device_dtype
-from ..inference.advi import run_advi
+from ..inference.advi import run_advi, run_advi_batch  # noqa: F401 (run_advi: the JAX module's name)
 from ..inference.conditionals import _landmarks_lp_with_pruning
 from ..inference.diagnostics import effective_sample_size
-from ..inference.laplace import compute_laplace_std
-from ..inference.losses import make_density_loglik_batch, make_density_value_and_grad_batch
+from ..inference.laplace import compute_laplace_std, laplace_std_from_diagonal  # noqa: F401
 from ..inference.mcmc import (
     BF16_SAMPLING,
-    hessian_cholesky,
-    newton_polish,
+    factor_hessian,
+    newton_polish_value_and_grad,
     precondition_transform,
-    preconditioned_potential,
+    precondition_value_and_grad,
     run_mcmc,
     unwhiten_samples,
 )
-from ..inference.optimizers import (
+from ..inference.optimizers import (  # noqa: F401 (minimize_adam, minimize_lbfgsb: as above)
     DEFAULT_INIT_LEARN_RATE,
     DEFAULT_N_ITER,
     DEFAULT_OPTIMIZER,
     minimize_adam,
-    minimize_lbfgs,
+    minimize_adam_value_and_grad,
+    minimize_lbfgs_value_and_grad,
+    minimize_lbfgsb,
 )
-from ..inference.smc import laplace_start, run_smc
+from ..inference.samplers import as_batched
+from ..inference.smc import laplace_start_value_and_grad, loglik_from_loss, run_smc
 from ..ops.kernels import Matern52
 from ..ops.linalg import (
     NYSTROEM_EXACT_MAX,
@@ -281,6 +283,10 @@ class BaseEstimator:
             "\n)"
         )
 
+    def __call__(self, x=None):
+        """``fit_predict(x)``, as the JAX package's estimators."""
+        return self.fit_predict(x=x)
+
     def set_x(self, x):
         """Validate and pin the training data on the estimator's device; a
         1-d x (one feature) becomes one column."""
@@ -484,7 +490,7 @@ class BaseEstimator:
         shape = self.initial_value.shape
         z0 = self.initial_value.reshape(-1)
         if optimizer == "adam":
-            results = minimize_adam(
+            results = minimize_adam_value_and_grad(
                 self._value_and_grad,
                 z0,
                 n_iter=self.n_iter,
@@ -495,7 +501,7 @@ class BaseEstimator:
             self.opt_state = results.opt_state
         elif optimizer == "advi":
             seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
-            results = run_advi(
+            results = run_advi_batch(
                 self._loss_batch,
                 z0,
                 n_iter=self.n_iter,
@@ -510,7 +516,7 @@ class BaseEstimator:
         elif optimizer == "smc":
             self._run_smc()
         else:
-            results = minimize_lbfgs(
+            results = minimize_lbfgs_value_and_grad(
                 self._value_and_grad,
                 z0,
                 precision=self.precision,
@@ -522,7 +528,7 @@ class BaseEstimator:
             self.opt_state = results
         if self.predictor_with_uncertainty and self.pre_transformation_std is None:
             logger.info("Computing Laplace approximation for posterior uncertainty.")
-            self.pre_transformation_std = compute_laplace_std(
+            self.pre_transformation_std = laplace_std_from_diagonal(
                 self._hessian_diagonal(self.pre_transformation.reshape(-1))
             ).reshape(shape)
 
@@ -556,12 +562,13 @@ class BaseEstimator:
         opts.update({k: v for k, v in self.sampler_options.items() if k in _NUTS_OPTION_KEYS})
         precondition = opts.pop("precondition", None)
         shape = self.initial_value.shape
-        z0 = minimize_lbfgs(self._value_and_grad, self.initial_value.reshape(-1)).pre_transformation
+        z0 = minimize_lbfgs_value_and_grad(
+            self._value_and_grad, self.initial_value.reshape(-1)).pre_transformation
         potential = self._sampler_potential(z0)
         if precondition == "hessian":
-            z_map, _, _ = newton_polish(potential, self._sampler_hessian, z0)
-            T = precondition_transform(hessian_cholesky(self._sampler_hessian(z_map), self.jitter))
-            potential = preconditioned_potential(potential, T, z_map)
+            z_map, _, _ = newton_polish_value_and_grad(potential, self._sampler_hessian, z0)
+            T = precondition_transform(factor_hessian(self._sampler_hessian(z_map), self.jitter))
+            potential = precondition_value_and_grad(potential, T, z_map)
             z0 = torch.zeros_like(z_map)
         for key in ("num_warmup", "num_samples", "num_chains", "max_tree_depth"):
             opts[key] = int(opts[key])
@@ -604,12 +611,12 @@ class BaseEstimator:
             opts[key] = int(opts[key])
         start = opts.pop("start", "prior")
         if start == "laplace":
-            loglik, prior_kwargs = laplace_start(
-                make_density_value_and_grad_batch(*self._loss_args), self.initial_value,
+            loglik, prior_kwargs = laplace_start_value_and_grad(
+                as_batched(self._loss_fn, self._loss_args), self.initial_value,
                 self._hessian_diagonal,
             )
         else:
-            loglik, prior_kwargs = make_density_loglik_batch(*self._loss_args), {}
+            loglik, prior_kwargs = as_batched(loglik_from_loss(self._loss_fn), self._loss_args), {}
         result = run_smc(loglik, int(self.initial_value.shape[0]), self._sampler_generator(),
                          dtype=self.dtype, **prior_kwargs, **opts)
         self.pre_transformation = result.particles.mean(dim=0)
@@ -623,3 +630,17 @@ class BaseEstimator:
         if getattr(self, attribute) is not None:
             return
         setattr(self, attribute, getattr(self, "_compute_" + attribute)())
+
+    # each estimator defines these
+    def prepare_inference(self, x):
+        ...
+
+    def fit(self):
+        ...
+
+    @property
+    def predict(self):
+        ...
+
+    def fit_predict(self, x):
+        ...

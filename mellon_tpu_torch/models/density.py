@@ -10,22 +10,32 @@ cells take the full GP type instead: no landmarks, L = chol(k(x, x)).
 ``.predict`` builds the conditional predictor lazily; with
 ``predictor_with_uncertainty=True`` it also carries the latents' std (from
 ADVI, NUTS or SMC, or else the diagonal Laplace approximation).
+
+The loss is ``losses.density_loss`` on the estimator's operands, which the
+inference functions evaluate in closed form; ``run_inference(loss_func=f)``
+optimizes another scalar loss f(z) in its place, by autograd (the JAX
+package's estimator keeps optimizing its density loss there).
 """
 
 import logging
 
 from ..inference.factories import compute_conditional
+from ..inference.advi import loss_batch_of
+from ..inference.laplace import hessian_diagonal_of
 from ..inference.losses import (
     compute_log_density_x,
     compute_loss_func,
     compute_transform,
-    density_hessian,
-    density_hessian_diagonal,
-    make_density_loss_batch,
-    make_density_value_and_grad,
+    density_loss,
 )
-from ..inference.mcmc import zero_centered_potential
-from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
+from ..inference.mcmc import hessian_of, zero_centered_potential
+from ..inference.optimizers import (
+    DEFAULT_INIT_LEARN_RATE,
+    DEFAULT_N_ITER,
+    DEFAULT_OPTIMIZER,
+    value_and_grad_of,
+)
+from ..inference.samplers import as_batched
 from ..parameters import (
     DEFAULT_RANDOM_SEED,
     compute_d,
@@ -35,7 +45,7 @@ from ..parameters import (
 )
 from ..utils.util import DEFAULT_JITTER, object_html
 from ..utils.validation import validate_array, validate_string
-from .base import DEFAULT_COV_FUNC, BaseEstimator
+from .base import DEFAULT_COV_FUNC, OPTIMIZERS, BaseEstimator
 
 DEFAULT_D_METHOD = "embedding"
 
@@ -207,18 +217,27 @@ class DensityEstimator(BaseEstimator):
         return compute_transform(self.mu, self.L)
 
     def _compute_loss_func(self):
-        # the forms the optimizers and the Laplace approximation take
-        args = (self.L, self.nn_distances, self.d, self.mu)
-        self._loss_args = args
-        self._make_value_and_grad = make_density_value_and_grad
-        self._value_and_grad = make_density_value_and_grad(*args)
-        self._loss_batch = make_density_loss_batch(*args)
-        self._hessian_diagonal = lambda z: density_hessian_diagonal(z, *args)
-        self._sampler_potential = lambda z0: zero_centered_potential(z0, *args)[0]
-        self._sampler_hessian = lambda z: density_hessian(z, *args)
+        self._set_loss(density_loss, (self.L, self.nn_distances, self.d, self.mu))
         return compute_loss_func(
             self.nn_distances, self.d, self.transform, self.initial_value.shape[0]
         )
+
+    def _set_loss(self, loss_fn, loss_args):
+        """The forms of ``loss_fn(z, *loss_args)`` that the optimizers, the
+        Laplace approximation and the samplers take, each in closed form for
+        the density loss: value and gradient at one z (and the operands
+        that the bf16 MAP rounds), the batched loss, the Hessian diagonal,
+        the samplers' zero-centred batched potential and the Hessian."""
+        self._loss_fn, self._loss_args = loss_fn, tuple(loss_args)
+        self._make_value_and_grad = (
+            (lambda *args: value_and_grad_of(loss_fn, *args)) if loss_args else None
+        )
+        self._value_and_grad = value_and_grad_of(loss_fn, *loss_args)
+        self._loss_batch = loss_batch_of(loss_fn, loss_args)
+        self._hessian_diagonal = hessian_diagonal_of(loss_fn, loss_args)
+        self._sampler_potential = lambda z0: as_batched(
+            *zero_centered_potential(loss_fn, z0, loss_args))
+        self._sampler_hessian = hessian_of(loss_fn, loss_args)
 
     def _set_log_density_x(self):
         self.log_density_x = compute_log_density_x(self.pre_transformation, self.transform)
@@ -256,8 +275,21 @@ class DensityEstimator(BaseEstimator):
             self._prepare_attribute(attribute)
         return self.loss_func, self.initial_value
 
-    def run_inference(self):
-        """Optimize the latents; returns ``pre_transformation``."""
+    def run_inference(self, loss_func=None, initial_value=None, optimizer=None):
+        """Optimize the latents; returns ``pre_transformation``.  As in the
+        JAX package, ``initial_value`` and ``optimizer`` replace the
+        estimator's.  A ``loss_func`` other than the estimator's own, a
+        scalar function of the latents, is the one optimized (the JAX
+        package keeps its density loss): by autograd, ``torch.func`` for
+        the samplers (:func:`..inference.samplers.as_batched`)."""
+        if loss_func is not None and loss_func is not self.loss_func:
+            self.loss_func = loss_func
+            self._set_loss(loss_func, ())
+        if initial_value is not None:
+            self.initial_value = validate_array(initial_value, "initial_value",
+                                                dtype=self.dtype, device=self.device)
+        if optimizer is not None:
+            self.optimizer = validate_string(optimizer, "optimizer", choices=set(OPTIMIZERS))
         self._run_inference()
         return self.pre_transformation
 

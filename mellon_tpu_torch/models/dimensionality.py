@@ -91,8 +91,8 @@ class DimensionalityEstimator(BaseEstimator):
         jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
-        precision=None,
         sampler_options=None,
+        precision=None,
         device=None,
         dtype=None,
     ):

@@ -28,7 +28,10 @@ import math
 
 import torch
 
-from ..inference.optimizers import minimize_lbfgs
+from ..inference.optimizers import (  # noqa: F401 (minimize_lbfgsb: the JAX module's name)
+    minimize_lbfgs_value_and_grad,
+    minimize_lbfgsb,
+)
 from ..ops.kernels import Exponential, ExpQuad, Linear, Matern32, Matern52
 from ..ops.linalg import _cholesky_f64_rescue
 from ..utils.util import DEFAULT_JITTER, mle
@@ -284,13 +287,13 @@ def _batched_ls_time_densities(x, nn_distances, cov_func_curry, kw, unique_times
     def value_and_grad(z):
         return _batched_density_value_and_grad(z, *loss_args)
 
-    res = minimize_lbfgs(value_and_grad, z0.reshape(-1))
+    res = minimize_lbfgs_value_and_grad(value_and_grad, z0.reshape(-1))
     if not math.isfinite(res.loss):
         logger.warning(
             "Batched ls_time L-BFGS diverged (non-finite loss); "
             "retrying from the zero initialization."
         )
-        res = minimize_lbfgs(value_and_grad, torch.zeros_like(z0.reshape(-1)))
+        res = minimize_lbfgs_value_and_grad(value_and_grad, torch.zeros_like(z0.reshape(-1)))
         if not math.isfinite(res.loss):
             logger.warning(
                 "Batched ls_time fit is non-finite after the zero-init "
@@ -396,7 +399,7 @@ def compute_ls_time(
     corrs = torch.corrcoef(densities)
     delta_t = torch.abs(unique_times[:, None] - unique_times[None, :]).reshape(-1, 1)
     fun = _ls_loss_value_and_grad(cov_func_curry, delta_t.to(corrs.dtype), corrs)
-    opt = minimize_lbfgs(fun, corrs.new_zeros(1))
+    opt = minimize_lbfgs_value_and_grad(fun, corrs.new_zeros(1))
     ls = float(torch.exp(opt.pre_transformation[0]))
     if return_data:
         return ls, densities, predictors, unique_times

@@ -13,18 +13,30 @@ import html
 import logging
 
 from ..inference.factories import compute_conditional_times
+# the helpers the JAX package's module binds are bound here too (noqa F401)
+from ..inference.losses import compute_log_density_x, compute_loss_func, compute_transform  # noqa: F401
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
-from ..parameters import (
+from ..parameters import (  # noqa: F401
     DEFAULT_RANDOM_SEED,
     compute_average_cell_count,
     compute_cov_func,
+    compute_d,
+    compute_d_factal,
+    compute_initial_value,
     compute_landmarks_rescale_time,
     compute_ls,
+    compute_mu,
     compute_nn_distances_within_time_points,
 )
 from ..utils.util import DEFAULT_JITTER, object_str
-from ..utils.validation import validate_nn_distances, validate_positive_float, validate_time_x
-from .base import DEFAULT_COV_FUNC
+from ..utils.validation import (  # noqa: F401
+    validate_array,
+    validate_nn_distances,
+    validate_positive_float,
+    validate_string,
+    validate_time_x,
+)
+from .base import DEFAULT_COV_FUNC, BaseEstimator  # noqa: F401
 from .density import DEFAULT_D_METHOD, SIZE_ATTRIBUTES, DensityEstimator
 from .ls_time import compute_ls_time
 
@@ -90,8 +102,8 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
         jit=False,
         check_rank=None,
         random_state=DEFAULT_RANDOM_SEED,
-        precision=None,
         sampler_options=None,
+        precision=None,
         device=None,
         dtype=None,
     ):
@@ -271,18 +283,6 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
         for attribute in TIME_PREPARED_ATTRIBUTES:
             self._prepare_attribute(attribute)
         return self.loss_func, self.initial_value
-
-    def run_inference(self, loss_func=None, initial_value=None, optimizer=None):
-        """Optimize the latents (``optimizer`` replaces the estimator's);
-        returns ``pre_transformation``."""
-        if loss_func is not None:
-            self.loss_func = loss_func
-        if initial_value is not None:
-            self.initial_value = initial_value
-        if optimizer is not None:
-            self.optimizer = optimizer
-        self._run_inference()
-        return self.pre_transformation
 
     def fit(self, x=None, times=None, build_predict=True):
         """End-to-end training on x (with ``times``, or time as its last

@@ -18,7 +18,7 @@ import logging
 
 import torch
 
-from ..utils.util import DEFAULT_JITTER, add_diagonal
+from ..utils.util import DEFAULT_JITTER, add_diagonal, stabilize  # noqa: F401 (stabilize: re-exported)
 
 DEFAULT_RANK = 0.99
 DEFAULT_SIGMA = 0
@@ -31,6 +31,21 @@ PIVOT_CHUNK = 64
 F64_RESCUE_TRIES = 8
 
 logger = logging.getLogger("mellon_tpu_torch")
+
+
+def cholesky_with_check(K, jitter=DEFAULT_JITTER):
+    """Cholesky of an already-stabilized matrix; a ValueError (logged) where
+    it fails, with the JAX package's message (``jitter`` is only named in
+    it)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    if int(info) != 0 or bool(torch.any(torch.isnan(L))):
+        message = (
+            f"Covariance not positively definite with jitter={jitter}. "
+            "Consider increasing the jitter for numerical stabilization."
+        )
+        logger.error(message)
+        raise ValueError(message)
+    return L
 
 
 def _jittered_cholesky(K, jitter):

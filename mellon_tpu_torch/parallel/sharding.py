@@ -12,6 +12,11 @@ ranks' partial Lᵀ·diag(e)·L, then the prior's identity.  These are what
 the JAX package's ``hessian_cholesky``, ``newton_polish`` and
 ``laplace.hessian_diagonal`` compute when handed the sharded operands;
 autograd cannot pass the ``all_reduce`` (``losses.SHARDED_DERIVATIVES``).
+The loss is a scalar function that knows its batched form
+(:class:`..inference.samplers.ScalarPotential`), so the functional API
+(``run_mcmc(loss_func, ...)``, ``newton_polish``, ``hessian_cholesky``,
+``compute_laplace_std``) takes it as the JAX package's takes its sharded
+loss, with that curvature.
 
 The functions take the global operands and keep this rank's block, as the
 JAX package's take global arrays and place them.
@@ -22,15 +27,15 @@ import math
 
 import torch
 
+from ..inference.likelihoods import nearest_neighbors_likelihood, normal_prior  # noqa: F401
 from ..inference.losses import (
-    density_hessian,
-    density_hessian_diagonal,
     make_density_value_and_grad,
     make_density_value_and_grad_batch,
     zero_centering_offset,
 )
 from ..inference.predictors import _check_n_obs
-from .mesh import all_gather, cell_sharding, chain_sharding
+from ..inference.samplers import ScalarPotential
+from .mesh import CELL_AXIS, all_gather, cell_sharding, chain_sharding, replicated  # noqa: F401
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -45,7 +50,8 @@ def shard_density_model(nn_distances, d, mu, L, mesh, center=None):
     (C,), gradients (C, m))`` is the samplers' batched potential, and
     ``loss_func.hessian(z) -> (m, m)`` and ``loss_func.hessian_diagonal(z)
     -> (m,)`` its curvature (the Newton polish, the preconditioner, the
-    Laplace stds).  Every rank of a cells group must call them together,
+    Laplace stds), which the functional API also finds itself
+    (``loss_func`` is a :class:`..inference.samplers.ScalarPotential`).  Every rank of a cells group must call them together,
     on the same z.  The blocks are copies: the caller may free the global
     L.  With a ``center`` z0 the potential is zero-centred there, as
     :func:`..inference.mcmc.zero_centered_potential`'s: each of the n
@@ -60,15 +66,11 @@ def shard_density_model(nn_distances, d, mu, L, mesh, center=None):
     args = (L_block, nn_block, d, mu, offset)
     value_and_grad = make_density_value_and_grad(*args, group=sharding.group)
 
-    def loss_func(z):
-        return value_and_grad(z)[0]
-
-    loss_func.value_and_grad = make_density_value_and_grad_batch(*args, group=sharding.group,
-                                                                 center=center)
-    curvature = (L_block, nn_block, d, mu)
-    loss_func.hessian = lambda z: density_hessian(z, *curvature, group=sharding.group)
-    loss_func.hessian_diagonal = lambda z: density_hessian_diagonal(z, *curvature,
-                                                                    group=sharding.group)
+    batched = make_density_value_and_grad_batch(*args, group=sharding.group, center=center)
+    loss_func = ScalarPotential(lambda z: value_and_grad(z)[0], lambda: batched)
+    loss_func.value_and_grad = batched
+    loss_func.hessian = batched.hessian
+    loss_func.hessian_diagonal = batched.hessian_diagonal
     return loss_func, (nn_block, L_block)
 
 

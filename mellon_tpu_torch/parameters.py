@@ -13,7 +13,8 @@ import logging
 import torch
 
 from .ops.cluster import k_means
-from .ops.linalg import (
+from .ops.linalg import (  # noqa: F401 (DEFAULT_RANK: the JAX module's name)
+    DEFAULT_RANK,
     DEFAULT_SIGMA,
     _full_decomposition_low_rank,
     _full_rank,
@@ -28,7 +29,8 @@ from .utils.parameter_validation import (
     validate_params,
 )
 from .utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, mle
-from .utils.validation import (
+from .utils.validation import (  # noqa: F401 (validate_array: the JAX module's name)
+    validate_array,
     validate_float_or_int,
     validate_float_or_iterable_numerical,
     validate_k,

@@ -15,9 +15,10 @@ from inspect import Parameter
 import numpy as np
 import torch
 
-logger = logging.getLogger("mellon_tpu_torch")
+from ..config import DEFAULT_JITTER
+from .validation import validate_array
 
-DEFAULT_JITTER = 1e-6
+logger = logging.getLogger("mellon_tpu_torch")
 DEFAULT_RANK_TOL = 5e-1
 # the tag of an array in the JSON files that this package, mellon_tpu and
 # the reference Mellon all read and write
@@ -157,8 +158,6 @@ def make_multi_time_argument(func):
         bound = sig.bind_partial(self, *args, **kwargs)
         if bound.arguments.get("time") is not None:
             raise ValueError("Cannot specify both 'time' and 'multi_time' arguments")
-        from .validation import validate_array
-
         grid = validate_array(multi_time, "multi_time", dtype=self.dtype, device=self.device)
         grid = grid.reshape(-1)
         if bound.arguments.get("diag", True) is False:

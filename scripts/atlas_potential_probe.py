@@ -83,14 +83,14 @@ def main():
     z0 = est.pre_transformation
     cs.log(f"[probe] fit {time.perf_counter() - t0:.1f} s; L {tuple(L.shape)}; "
            f"L-BFGS {est.opt_state.n_steps} steps")
-    centred, offset = mcmc.zero_centered_potential(z0, L, nn, d, mu)
+    centred, offset = mcmc.zero_centered_density_potential(z0, L, nn, d, mu)
     forms = {"offset": make_density_value_and_grad_batch(L, nn, d, mu, offset),
              "offset, float64 sum": float64_sum_potential(L, nn, d, mu, offset),
              "centred": centred}
     hessian = lambda z: density_hessian(z, L, nn, d, mu)  # noqa: E731
-    z_map, gn0, gn1 = mcmc.newton_polish(centred, hessian, z0)
+    z_map, gn0, gn1 = mcmc.newton_polish_value_and_grad(centred, hessian, z0)
     H = hessian(z_map)
-    T = mcmc.precondition_transform(mcmc.hessian_cholesky(H))
+    T = mcmc.precondition_transform(mcmc.factor_hessian(H))
     cs.log(f"[probe] Newton polish |g| {gn0!r} -> {gn1!r}")
     V, Vdr = nearest_neighbors_terms(nn, d)
     F = L @ z_map + mu
@@ -123,7 +123,7 @@ def main():
     torch.cuda.empty_cache()
     sub = torch.as_tensor(cs.latent_subset(T.shape[0]), device=cs.DEVICE)
     for name in ("offset", "centred"):
-        potential = cs.CountedCalls(mcmc.preconditioned_potential(forms[name], T, z_map))
+        potential = cs.counted_calls(mcmc.precondition_value_and_grad(forms[name], T, z_map))
         w0 = z_map.new_zeros((8, T.shape[0]))
         gen = torch.Generator(device=cs.DEVICE).manual_seed(1)
         res, seconds = cs.synced_seconds(lambda: mcmc.run_mcmc(potential, w0, gen, **NUTS))

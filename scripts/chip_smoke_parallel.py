@@ -75,7 +75,7 @@ from mellon_tpu_torch import parallel  # noqa: E402
 from mellon_tpu_torch.inference import mcmc, smc  # noqa: E402
 from mellon_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat  # noqa: E402
 from mellon_tpu_torch.inference.factories import compute_conditional  # noqa: E402
-from mellon_tpu_torch.inference.laplace import compute_laplace_std  # noqa: E402
+from mellon_tpu_torch.inference.laplace import laplace_std_from_diagonal  # noqa: E402
 from mellon_tpu_torch.inference.losses import (  # noqa: E402
     density_hessian,
     density_hessian_diagonal,
@@ -242,7 +242,7 @@ def nuts_checks(bars, est, mesh, reference):
     [nuts] samples (the mesh's cells axis has one rank, and a one-rank
     gloo all_reduce of CUDA tensors would add a round trip through the
     host to every leaf); returns the result."""
-    potential = chip_smoke.CountedCalls(mcmc.zero_centered_potential(
+    potential = chip_smoke.counted_calls(mcmc.zero_centered_density_potential(
         est.pre_transformation, *est._loss_args)[0])
     opts = dict(chip_smoke.NUTS_OPTIONS, max_tree_depth=10, initial_step_size=0.1)
     gen = torch.Generator(device=est.device).manual_seed(0)
@@ -253,7 +253,7 @@ def nuts_checks(bars, est, mesh, reference):
     ld = est.transform(flat.mean(dim=0))
     rhat = float(np.max(split_rhat(res.samples)))
     ess = effective_sample_size(res.samples)
-    laplace = compute_laplace_std(est._hessian_diagonal(est.pre_transformation))
+    laplace = laplace_std_from_diagonal(est._hessian_diagonal(est.pre_transformation))
     ratio = float(flat.std(dim=0, correction=0).mean() / laplace.mean())
     corr_map = log_density_corr(ld, est.log_density_x)
     corr_nuts = log_density_corr(ld, torch.as_tensor(reference["log_density"]))
@@ -336,7 +336,7 @@ def phase_one(bars, est, x, out):
     cell_sharded_checks(bars, est, mesh, exact=True)
     launches, calls = predict_checks(bars, est, x, mesh, exact=True)
     args = est._loss_args
-    local, _ = mcmc.zero_centered_potential(est.pre_transformation, *args)
+    local, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *args)
     L, nn, d, mu = args
     sharded = parallel.shard_density_model(nn, d, mu, L, mesh,
                                            center=est.pre_transformation)[0].value_and_grad
@@ -415,7 +415,7 @@ def phase_atlas(bars, device, world, backend, out):
                newton_grad_norm=list(norms), seconds=precond_s, digests=digests,
                global_L_bytes_freed=freed)
 
-    potential = chip_smoke.CountedCalls(mcmc.preconditioned_potential(loss.value_and_grad, T, z_star))
+    potential = chip_smoke.counted_calls(mcmc.precondition_value_and_grad(loss.value_and_grad, T, z_star))
     opts = {k: v for k, v in chip_smoke.ATLAS_NUTS.items() if k != "num_chains"}
     w0 = z_star.new_zeros((chip_smoke.ATLAS_NUTS["num_chains"], z_star.shape[0]))
     gen = torch.Generator(device=z0.device).manual_seed(chip_smoke.ATLAS_NUTS_SEED)

@@ -36,7 +36,7 @@ from mellon_tpu_torch.inference.losses import (  # noqa: E402
     compute_dimensionality_transform,
     make_dimensionality_value_and_grad,
 )
-from mellon_tpu_torch.inference.optimizers import minimize_lbfgs  # noqa: E402
+from mellon_tpu_torch.inference.optimizers import minimize_lbfgs_value_and_grad  # noqa: E402
 
 
 def lbfgs_stats(res):
@@ -105,7 +105,7 @@ def main():
     optima = {}
     for name, (fun, z0, transform) in problems.items():
         t0 = time.perf_counter()
-        res = minimize_lbfgs(fun, z0, max_iter=args.max_iter)
+        res = minimize_lbfgs_value_and_grad(fun, z0, max_iter=args.max_iter)
         sync()
         optima[name] = transform(res.pre_transformation.reshape(2, -1))
         dims, log_dens = optima[name]

@@ -36,7 +36,8 @@ def main():
     import mellon_tpu_torch as mt
     from mellon_tpu_torch.inference import mcmc
     from mellon_tpu_torch.inference.diagnostics import effective_sample_size, split_rhat
-    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs
+    from mellon_tpu_torch.inference.losses import BatchedPotential
+    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs_value_and_grad
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
@@ -44,12 +45,13 @@ def main():
     x = np.asarray(np.load(os.path.join(ROOT, "benchdata", "ld_ref_8627x20_f64.npz"))["x"], dtype=np.float32)
     est = mt.DensityEstimator(device="cuda")
     est.prepare_inference(x)
-    z_map = minimize_lbfgs(est._value_and_grad, est.initial_value).pre_transformation
-    value_and_grad, offset = mcmc.zero_centered_potential(z_map, *est._loss_args)
+    z_map = minimize_lbfgs_value_and_grad(est._value_and_grad, est.initial_value).pre_transformation
+    value_and_grad, offset = mcmc.zero_centered_density_potential(z_map, *est._loss_args)
     print(json.dumps({"loss_warm_start": float(est._value_and_grad(est.initial_value)[0]),
                       "loss_map": float(est._value_and_grad(z_map)[0]), "offset": offset}), flush=True)
     rows = [0]
 
+    @BatchedPotential
     def counted(Z):
         rows[0] += Z.shape[0]
         return value_and_grad(Z)

@@ -20,6 +20,7 @@ import torch.distributed as dist
 
 import mellon_tpu_torch as mt
 from mellon_tpu_torch.inference import laplace, mcmc, samplers, smc
+from mellon_tpu_torch.inference.losses import BatchedPotential
 from mellon_tpu_torch.parallel import (
     chain_sharding,
     create_mesh,
@@ -65,7 +66,7 @@ def gaussian_loglik(m, s2):
         d = Z - m
         return -0.5 * torch.sum(d * d, dim=1) / s2 - 0.5 * Z.shape[1] * np.log(2 * np.pi * s2), -d / s2
 
-    return loglik
+    return BatchedPotential(loglik)
 
 
 def scenario_mesh(data, world):
@@ -176,12 +177,12 @@ def scenario_curvature(data, world):
         error = ""
     except RuntimeError as e:
         error = str(e)
-    z_polish, gn0, gn1 = mcmc.newton_polish(loss.value_and_grad, loss.hessian, t64(data["z_init"]))
+    z_polish, gn0, gn1 = mcmc.newton_polish_value_and_grad(loss.value_and_grad, loss.hessian, t64(data["z_init"]))
     z_star, T, _ = mcmc.hessian_preconditioner(loss.value_and_grad, loss.hessian, z_map,
                                                chain_sharding=chain_sharding(mesh))
     return np_out(hessian=torch.stack([loss.hessian(z) for z in points]),
                   diagonal=torch.stack([loss.hessian_diagonal(z) for z in points]),
-                  laplace_std=laplace.compute_laplace_std(loss.hessian_diagonal(z_map)),
+                  laplace_std=laplace.laplace_std_from_diagonal(loss.hessian_diagonal(z_map)),
                   error=error, z_polish=z_polish, grad_norms=[gn0, gn1], z_star=z_star, T=T)
 
 
@@ -196,7 +197,7 @@ def _preconditioned_run(data, mesh, draws, sharding, rows, **run):
     z_map, T, _ = mcmc.hessian_preconditioner(loss.value_and_grad, loss.hessian, z0,
                                               chain_sharding=sharding)
     w0 = torch.zeros_like(z_map)
-    res = mcmc.run_mcmc(mcmc.preconditioned_potential(loss.value_and_grad, T, z_map),
+    res = mcmc.run_mcmc(mcmc.precondition_value_and_grad(loss.value_and_grad, T, z_map),
                         w0.repeat(rows, 1) if rows else w0, draws, chain_sharding=sharding, **run)
     return res._replace(samples=mcmc.unwhiten_samples(res.samples, T, z_map))
 
@@ -239,7 +240,7 @@ def scenario_moments(data, world):
 def scenario_hmc(data, world):
     """Fixed-step HMC with the chains over every rank (world x 1), seed 8."""
     L, nn, d, mu = operands(data)
-    vg, _ = mcmc.zero_centered_potential(t64(data["z_map"]), L, nn, d, mu)
+    vg, _ = mcmc.zero_centered_density_potential(t64(data["z_map"]), L, nn, d, mu)
     res = mcmc.run_mcmc(vg, t64(data["z_map"]), torch.Generator().manual_seed(8),
                         chain_sharding=chain_sharding(mesh_of(world, world)), **HMC_RUN)
     return np_out(**res._asdict())

@@ -18,7 +18,7 @@ import torch
 
 import mellon_tpu_torch
 from mellon_tpu_torch.inference.diagnostics import summarize
-from mellon_tpu_torch.inference.losses import make_density_value_and_grad_batch
+from mellon_tpu_torch.inference.losses import BatchedPotential, make_density_value_and_grad_batch
 from mellon_tpu_torch.inference.mcmc import run_mcmc
 from mellon_tpu_torch.inference.samplers import Draws, hmc_init, hmc_kernel, nuts_kernel
 from mellon_tpu_torch.ops.hopper_kernels import (
@@ -252,6 +252,7 @@ def test_nuts_on_card_recovers_gaussian(cuda):
     cov = torch.tensor([[2.0, 0.9], [0.9, 1.0]], dtype=torch.float64, device=cuda)
     prec, mean = torch.linalg.inv(cov), torch.tensor([1.0, -1.0], dtype=torch.float64, device=cuda)
 
+    @BatchedPotential
     def value_and_grad(Z):
         d = Z - mean
         return 0.5 * torch.sum((d @ prec) * d, dim=1), d @ prec
@@ -267,6 +268,7 @@ def test_nuts_on_card_recovers_gaussian(cuda):
 def test_sampler_refuses_a_generator_on_another_device(cuda):
     """A CPU generator with operands on the card raises; nothing is copied
     across."""
+    @BatchedPotential
     def value_and_grad(Z):
         return 0.5 * torch.sum(Z * Z, dim=1), Z
 
@@ -665,7 +667,7 @@ def _gloo_hessian_rank(rank, store):
 
     from mellon_tpu_torch import parallel
     from mellon_tpu_torch.inference.losses import density_hessian, density_hessian_diagonal
-    from mellon_tpu_torch.inference.mcmc import hessian_preconditioner, zero_centered_potential
+    from mellon_tpu_torch.inference.mcmc import hessian_preconditioner, zero_centered_density_potential
 
     device = torch.device("cuda", 0)
     parallel.distributed_initialize(backend="gloo", device=device, rank=rank, world_size=2,
@@ -685,7 +687,7 @@ def _gloo_hessian_rank(rank, store):
         assert float((H - H0).abs().max() / H0.abs().max()) <= bar
         assert float((diag - diag0).abs().max() / diag0.abs().max()) <= bar
     chains = parallel.create_mesh(2, 1, devices=[device, device])
-    vg, _ = zero_centered_potential(z, *est._loss_args)
+    vg, _ = zero_centered_density_potential(z, *est._loss_args)
     hessian = lambda v: density_hessian(v, *est._loss_args)  # noqa: E731
     z_star, T, _ = hessian_preconditioner(vg, hessian, z,
                                           chain_sharding=parallel.chain_sharding(chains))

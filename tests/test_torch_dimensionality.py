@@ -19,7 +19,7 @@ from mellon_tpu.inference.laplace import hessian_diagonal as jax_hessian_diagona
 from mellon_tpu.inference.optimizers import minimize_adam as jax_minimize_adam
 from mellon_tpu.ops.neighbors import local_dimensionality as jax_local_dimensionality
 from mellon_tpu_torch.inference import losses as tl
-from mellon_tpu_torch.inference.optimizers import minimize_adam
+from mellon_tpu_torch.inference.optimizers import minimize_adam_value_and_grad
 from mellon_tpu_torch.ops.neighbors import local_dimensionality
 
 TOL = 1e-10
@@ -113,7 +113,7 @@ def test_adam_matches_jax():
         jl.dimensionality_loss, jnp.asarray(z), n_iter=30,
         loss_args=(jnp.asarray(L), jnp.asarray(dist), mu_dim, mu_dens),
     )
-    got = minimize_adam(
+    got = minimize_adam_value_and_grad(
         tl.make_dimensionality_value_and_grad(t64(L), t64(dist), mu_dim, mu_dens),
         t64(z).reshape(-1), n_iter=30,
     )
@@ -231,7 +231,7 @@ def test_laplace_uncertainty_on_jax_latents(fitted):
     est.predictor_with_uncertainty = True
     jest.predictor_with_uncertainty = True
     jest.pre_transformation_std = jstd
-    std = mt.inference.laplace.compute_laplace_std(
+    std = mt.inference.laplace.laplace_std_from_diagonal(
         est._hessian_diagonal(est.pre_transformation.reshape(-1))
     ).reshape(2, -1)
     np.testing.assert_allclose(to_np(std), np.asarray(jstd), rtol=1e-8)
@@ -413,9 +413,9 @@ def test_nuts_hessian_preconditioned():
 
 def minimize_lbfgs_flat(est):
     """The L-BFGS MAP the estimator's NUTS starts from."""
-    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs
+    from mellon_tpu_torch.inference.optimizers import minimize_lbfgs_value_and_grad
 
-    return minimize_lbfgs(est._value_and_grad, est.initial_value.reshape(-1)).pre_transformation
+    return minimize_lbfgs_value_and_grad(est._value_and_grad, est.initial_value.reshape(-1)).pre_transformation
 
 
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])

@@ -19,7 +19,7 @@ from mellon_tpu_torch.inference.losses import (
     density_value_and_grad,
     make_density_value_and_grad,
 )
-from mellon_tpu_torch.inference.optimizers import minimize_lbfgs
+from mellon_tpu_torch.inference.optimizers import minimize_lbfgs_value_and_grad
 from mellon_tpu_torch.ops.kernels import Matern52
 
 
@@ -54,7 +54,7 @@ def test_lbfgs_reaches_jax_optimum():
         jax_density_loss, jnp.asarray(z0), 400, 1e-10,
         jnp.asarray(L), jnp.asarray(nn), d, mu,
     )
-    res = minimize_lbfgs(
+    res = minimize_lbfgs_value_and_grad(
         make_density_value_and_grad(t64(L), t64(nn), d, mu), t64(z0), tol=1e-10
     )
     np.testing.assert_allclose(to_np(res.pre_transformation), np.asarray(zj), rtol=0, atol=1e-6)
@@ -68,7 +68,7 @@ def test_lbfgs_stopping_rule_and_log(caplog):
     L, nn, z0 = _problem(seed=13)
     fun = make_density_value_and_grad(t64(L), t64(nn), 4, -2.5)
     with caplog.at_level("INFO", logger="mellon_tpu_torch"):
-        res = minimize_lbfgs(fun, t64(z0))
+        res = minimize_lbfgs_value_and_grad(fun, t64(z0))
     value, grad = fun(res.pre_transformation)
     assert float(grad.norm()) < 1e-5 * max(1.0, abs(float(value)))
     assert res.converged
@@ -78,7 +78,7 @@ def test_lbfgs_stopping_rule_and_log(caplog):
 def test_lbfgs_reports_an_unmet_tolerance():
     """A run cut by max_iter before ‖g‖ < tol·max(1, |loss|) says so."""
     L, nn, z0 = _problem(seed=13)
-    res = minimize_lbfgs(make_density_value_and_grad(t64(L), t64(nn), 4, -2.5), t64(z0), max_iter=2)
+    res = minimize_lbfgs_value_and_grad(make_density_value_and_grad(t64(L), t64(nn), 4, -2.5), t64(z0), max_iter=2)
     assert res.n_steps == 2 and not res.converged
 
 
@@ -123,7 +123,7 @@ def test_lbfgs_stops_where_the_line_search_finds_no_decrease(caplog):
         return torch.sum(z * z), -2.0 * z
 
     with caplog.at_level("INFO", logger="mellon_tpu_torch"):
-        res = minimize_lbfgs(uphill, z0)
+        res = minimize_lbfgs_value_and_grad(uphill, z0)
     assert res.n_steps == 0 and not res.converged
     torch.testing.assert_close(res.pre_transformation, z0, rtol=0, atol=0)
     assert res.loss == float(torch.sum(z0 * z0))
@@ -189,8 +189,8 @@ def test_lbfgs_bf16_two_phase_matches_jax():
     L, nn, d, mu = _bf16_problem()
     args = (torch.as_tensor(L), torch.as_tensor(nn), d, mu)
     z0 = torch.zeros(32)
-    f32 = minimize_lbfgs(make_density_value_and_grad(*args), z0)
-    bf16 = minimize_lbfgs(make_density_value_and_grad(*args), z0, precision="bf16",
+    f32 = minimize_lbfgs_value_and_grad(make_density_value_and_grad(*args), z0)
+    bf16 = minimize_lbfgs_value_and_grad(make_density_value_and_grad(*args), z0, precision="bf16",
                           make_value_and_grad=make_density_value_and_grad, loss_args=args)
     assert bf16.phase_steps is not None and bf16.n_steps == sum(bf16.phase_steps)
     assert bf16.phase_steps[0] <= 300 and bf16.phase_steps[1] <= 100
@@ -203,7 +203,7 @@ def test_lbfgs_bf16_two_phase_matches_jax():
                                precision="bf16")
     assert np.corrcoef(f_b, L @ np.asarray(jres.pre_transformation))[0, 1] > 0.9999
     with pytest.raises(ValueError, match="precision"):
-        minimize_lbfgs(make_density_value_and_grad(*args), z0, precision="int8",
+        minimize_lbfgs_value_and_grad(make_density_value_and_grad(*args), z0, precision="int8",
                        make_value_and_grad=make_density_value_and_grad, loss_args=args)
 
 
@@ -219,7 +219,7 @@ def test_lbfgs_bf16_without_loss_args_falls_back(caplog):
     logger.propagate, was = True, logger.propagate
     try:
         with caplog.at_level(logging.INFO, logger="mellon_tpu_torch"):
-            res = minimize_lbfgs(value_and_grad, torch.zeros(4, dtype=torch.float64),
+            res = minimize_lbfgs_value_and_grad(value_and_grad, torch.zeros(4, dtype=torch.float64),
                                  precision="bf16")
     finally:
         logger.propagate = was

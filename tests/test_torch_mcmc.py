@@ -65,7 +65,7 @@ def test_zero_centered_potential_matches_jax(fitted):
     the centred potential is ~0 at z0."""
     jest, est = fitted
     want = float(_centered_args(jest)[-1])
-    vg, offset = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, offset = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     np.testing.assert_allclose(offset, want, rtol=1e-12)
     v0 = float(vg(est.pre_transformation[None])[0][0])
     assert abs(v0) < 1e-3 * abs(offset * est.L.shape[0])
@@ -134,7 +134,7 @@ def test_run_mcmc_replayed_matches_jax(fitted, algorithm, target_accept):
     if algorithm == "hmc":
         run["num_leapfrog_steps"] = 8
     want = jax_mcmc.run_mcmc(jax_density_loss, jest.pre_transformation, key, potential_args=args, **run)
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     got = mcmc.run_mcmc(vg, est.pre_transformation, JaxReplayDraws(key), **run)
     assert_runs_match(got, want)
     if algorithm == "hmc":
@@ -153,7 +153,7 @@ def test_resume_mcmc_replayed_matches_jax(fitted):
     key = jax.random.PRNGKey(6)
     want = jax_mcmc.resume_mcmc(jax_density_loss, jnp.asarray(z), key, 0.3, jnp.asarray(inv_mass),
                                 num_samples=10, max_tree_depth=5, potential_args=args)
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     got = mcmc.resume_mcmc(vg, t64(z), JaxReplayDraws(key), 0.3, t64(inv_mass), num_samples=10,
                            max_tree_depth=5)
     assert_runs_match(got, want)
@@ -187,16 +187,16 @@ def test_hessian_and_preconditioner_match_jax(fitted):
     np.testing.assert_allclose(to_np(H), np.asarray(want_H), rtol=1e-10, atol=1e-10)
 
     z_j, gn0_j, gn1_j = jax_mcmc.newton_polish(jax_density_loss, jest.initial_value, args)
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     hessian = lambda v: density_hessian(v, *est._loss_args)  # noqa: E731
-    z_p, gn0, gn1 = mcmc.newton_polish(vg, hessian, est.initial_value)
+    z_p, gn0, gn1 = mcmc.newton_polish_value_and_grad(vg, hessian, est.initial_value)
     np.testing.assert_allclose(to_np(z_p), np.asarray(z_j), rtol=1e-8, atol=1e-8)
     np.testing.assert_allclose([gn0, gn1], [gn0_j, gn1_j], rtol=1e-8, atol=1e-8)
     assert gn1 < 1e-6 * gn0
 
     R_j = jax_mcmc.hessian_cholesky(jax_density_loss, z_j, jnp.asarray(1e-6), *args)
     T_j = jax_mcmc.precondition_transform(R_j)
-    R = mcmc.hessian_cholesky(hessian(z_p), 1e-6)
+    R = mcmc.factor_hessian(hessian(z_p), 1e-6)
     T = mcmc.precondition_transform(R)
     np.testing.assert_allclose(to_np(R), np.asarray(R_j), rtol=1e-8, atol=1e-10)
     np.testing.assert_allclose(to_np(T), np.asarray(T_j), rtol=1e-8, atol=1e-10)
@@ -225,10 +225,10 @@ def test_hessian_preconditioned_sampling_on_an_ill_conditioned_gaussian():
     def potential(Z):
         return 0.5 * torch.sum(((Z - mean) @ prec) * (Z - mean), dim=1)
 
-    R = mcmc.hessian_cholesky(mcmc.autograd_hessian(potential)(mean), 1e-10)
+    R = mcmc.factor_hessian(mcmc.autograd_hessian(potential)(mean), 1e-10)
     np.testing.assert_allclose(to_np(R @ R.T), to_np(prec), rtol=2e-3, atol=1e-4)
     T = mcmc.precondition_transform(R)
-    vg = mcmc.preconditioned_potential(samplers.batched_value_and_grad(potential), T, mean)
+    vg = mcmc.precondition_value_and_grad(samplers.batched_value_and_grad(potential), T, mean)
     res = mcmc.run_mcmc(vg, torch.zeros(dim, dtype=torch.float64), torch.Generator().manual_seed(0),
                         num_warmup=300, num_samples=600, num_chains=4, max_tree_depth=6)
     assert int(res.diverging.sum()) == 0
@@ -244,7 +244,7 @@ def test_steps_per_call_is_validated_and_ignored(fitted):
     """steps_per_call bounds one XLA program's run time in the JAX package;
     eager PyTorch accepts it, checks it and runs the same transitions."""
     _, est = fitted
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     runs = [mcmc.run_mcmc(vg, est.pre_transformation, torch.Generator().manual_seed(7), num_warmup=6,
                           num_samples=3, num_chains=2, max_tree_depth=4, steps_per_call=spc)
             for spc in (None, 2)]
@@ -340,21 +340,21 @@ def test_sampler_options_accepted():
 
 
 def test_unported_sampling_options_raise(fitted):
-    """bf16 sampling (ROADMAP "Do not port") raises NotImplementedError
+    """bf16 sampling (ROADMAP Queue 3) raises NotImplementedError
     naming its entry; a chain_sharding that is not a sharding of
     mellon_tpu_torch.parallel is a TypeError; an unknown precision is a
     ValueError as in the JAX package."""
     _, est = fitted
     for optimizer in ("nuts", "smc"):
-        with pytest.raises(NotImplementedError, match="Do not port"):
+        with pytest.raises(NotImplementedError, match="bf16 sampling"):
             mellon_tpu_torch.DensityEstimator(optimizer=optimizer, precision="bf16")
-    with pytest.raises(NotImplementedError, match="Do not port"):
+    with pytest.raises(NotImplementedError, match="bf16 sampling"):
         mcmc.sample_density_posterior(est, precision="bf16")
     with pytest.raises(ValueError, match="precision"):
         mcmc.sample_density_posterior(est, precision="fp8")
     with pytest.raises(ValueError, match="precondition"):
         mcmc.sample_density_posterior(est, precondition="dense")
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     for fn, extra in ((mcmc.run_mcmc, ()), (mcmc.resume_mcmc, (0.1, torch.ones(40, dtype=torch.float64)))):
         with pytest.raises(TypeError, match="chain_sharding must be a sharding"):
             fn(vg, est.pre_transformation, torch.Generator(), *extra, chain_sharding=object())

@@ -34,7 +34,7 @@ from mellon_tpu.parallel import sharded_loss_from_estimator as jax_sharded_loss
 from mellon_tpu_torch import state_from_jax
 from mellon_tpu_torch.inference import mcmc, smc
 from mellon_tpu_torch.inference.diagnostics import summarize
-from mellon_tpu_torch.inference.laplace import compute_laplace_std
+from mellon_tpu_torch.inference.laplace import laplace_std_from_diagonal
 from mellon_tpu_torch.inference.losses import (
     SHARDED_DERIVATIVES,
     density_hessian,
@@ -131,11 +131,11 @@ def _precond_moments_reference(est):
     """The unsharded preconditioned run of the worker's precond_moments
     scenario: the whitening at the MAP, 16 chains from w = 0, seed 7."""
     z0 = est.pre_transformation
-    vg, _ = mcmc.zero_centered_potential(z0, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(z0, *est._loss_args)
     z_map, T, _ = mcmc.hessian_preconditioner(vg, lambda z: density_hessian(z, *est._loss_args), z0)
     run = worker.PRECOND_MOMENTS_RUN
     w0 = torch.zeros(run["num_chains"], z_map.shape[0], dtype=z_map.dtype)
-    res = mcmc.run_mcmc(mcmc.preconditioned_potential(vg, T, z_map), w0,
+    res = mcmc.run_mcmc(mcmc.precondition_value_and_grad(vg, T, z_map), w0,
                         torch.Generator().manual_seed(7), **run)
     return mcmc.unwhiten_samples(res.samples, T, z_map)
 
@@ -162,7 +162,7 @@ def runs(fitted, tmp_path_factory):
     procs = {world: _spawn(tmp, world, inputs) for world in WORLDS}
 
     # the references, while the ranks run
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     ref = {
         "replay": _jax_replay(jest, jax_args),
         "precond_replay": {world: _jax_precond_replay(jest, jax_args, world) for world in WORLDS},
@@ -287,7 +287,7 @@ def test_cell_sharded_loss_matches_jax_and_local(runs, fitted, world):
         v_odd, g_odd = density_value_and_grad(t64(z), L[:N_ODD], nn[:N_ODD], d, mu)
         np.testing.assert_allclose(out["odd_values"][i], float(v_odd), rtol=1e-10)
         np.testing.assert_allclose(out["odd_grads"][i], to_np(g_odd), rtol=1e-10, atol=1e-10)
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     v_map, g_map = vg(est.pre_transformation[None])
     v0 = float(density_value_and_grad(est.pre_transformation, L, nn, d, mu)[0])
     # the centred value is the small residue of an O(n) loss: held to 1e-10 of loss(z0)
@@ -335,7 +335,7 @@ def test_sharded_newton_polish_and_preconditioner(runs, fitted, world):
     np.testing.assert_allclose(out["z_polish"], np.asarray(z_j), rtol=1e-8, atol=1e-8)
     np.testing.assert_allclose(out["grad_norms"], [gn0_j, gn1_j], rtol=1e-8, atol=1e-8)
     assert out["grad_norms"][1] < 1e-6 * out["grad_norms"][0]
-    vg, _ = mcmc.zero_centered_potential(est.pre_transformation, *est._loss_args)
+    vg, _ = mcmc.zero_centered_density_potential(est.pre_transformation, *est._loss_args)
     z_star, T, _ = mcmc.hessian_preconditioner(
         vg, lambda z: density_hessian(z, *est._loss_args), est.pre_transformation)
     np.testing.assert_allclose(out["z_star"], to_np(z_star), rtol=1e-8, atol=1e-8)
@@ -352,7 +352,7 @@ def test_laplace_hessian_diagonal_refuses_a_sharded_loss(runs, fitted, world):
     jest, est = fitted
     out = _same_on_every_rank(runs["ranks"][world]["curvature"])
     assert str(out["error"]) == SHARDED_DERIVATIVES
-    want = compute_laplace_std(density_hessian_diagonal(est.pre_transformation, *est._loss_args))
+    want = laplace_std_from_diagonal(density_hessian_diagonal(est.pre_transformation, *est._loss_args))
     np.testing.assert_allclose(out["laplace_std"], to_np(want), rtol=1e-10)
     _, sharded = _jax_sharded(runs["jax_args"], world // 2, 2)
     want_jax = jax_laplace.compute_laplace_std(jax_density_loss, jest.pre_transformation,

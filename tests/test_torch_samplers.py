@@ -20,6 +20,7 @@ from mellon_tpu_torch.inference.losses import (
     make_density_value_and_grad_batch,
 )
 from mellon_tpu_torch.inference.mcmc import run_mcmc
+from mellon_tpu_torch.inference.losses import BatchedPotential
 from mellon_tpu_torch.inference.samplers import batched_value_and_grad
 
 N, K, D, MU = 200, 30, 2.0, -1.0
@@ -171,6 +172,7 @@ def test_nuts_counts_the_leapfrogs_it_takes(density):
     accept_prob equals JAX's x (15 / 11): same sum, true count."""
     vg, calls = density["vg"], []
 
+    @BatchedPotential
     def counted(Z):
         calls.append(Z.shape[0])
         return vg(Z)
@@ -268,6 +270,7 @@ def test_mass_adaptation_absorbs_scales():
     identity-mass ones runs to the depth cap, and 100 already settle it."""
     scales = torch.tensor([0.01, 1.0, 100.0], dtype=torch.float64)
 
+    @BatchedPotential
     def value_and_grad(Z):
         return 0.5 * torch.sum((Z / scales) ** 2, dim=1), Z / scales**2
 
@@ -283,6 +286,7 @@ def test_hmc_recovers_gaussian():
     cov = torch.tensor([[2.0, 0.9], [0.9, 1.0]], dtype=torch.float64)
     prec, mean = torch.linalg.inv(cov), torch.tensor([1.0, -1.0], dtype=torch.float64)
 
+    @BatchedPotential
     def value_and_grad(Z):
         d = Z - mean
         return 0.5 * torch.sum((d @ prec) * d, dim=1), d @ prec

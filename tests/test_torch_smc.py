@@ -20,11 +20,12 @@ import mellon_tpu_torch
 from mellon_tpu_torch import state_from_jax
 from mellon_tpu_torch.inference import smc
 from mellon_tpu_torch.inference.losses import (
+    BatchedPotential,
     density_hessian_diagonal,
     make_density_loglik_batch,
     make_density_value_and_grad_batch,
 )
-from mellon_tpu_torch.inference.samplers import Draws
+from mellon_tpu_torch.inference.samplers import Draws, as_batched
 
 
 def _gaussian_loglik(m, s2, normalized=False):
@@ -38,7 +39,7 @@ def _gaussian_loglik(m, s2, normalized=False):
             value = value - 0.5 * Z.shape[1] * np.log(2 * np.pi * s2)
         return value, -d / s2
 
-    return loglik
+    return BatchedPotential(loglik)
 
 
 @pytest.mark.parametrize("spread", [1.0, 30.0, 1e4])
@@ -118,7 +119,7 @@ def test_laplace_start_matches_jax(fitted):
     adjusted_j, kw_j = jax_smc.laplace_start(jax_density_loss, jest._loss_args, jest.initial_value,
                                              z_map=jest.pre_transformation)
     args = est._loss_args
-    adjusted, kw = smc.laplace_start(make_density_value_and_grad_batch(*args), est.initial_value,
+    adjusted, kw = smc.laplace_start_value_and_grad(make_density_value_and_grad_batch(*args), est.initial_value,
                                      lambda z: density_hessian_diagonal(z, *args),
                                      z_map=est.pre_transformation)
     key = jax.random.PRNGKey(4)
@@ -128,7 +129,7 @@ def test_laplace_start_matches_jax(fitted):
     np.testing.assert_allclose(to_np(Z), want, rtol=1e-10)
     for fj, fp in ((kw_j["prior_logpdf"], kw["prior_logpdf"]),
                    (lambda z: adjusted_j(z, *jest._loss_args), adjusted)):
-        values, grads = fp(Z)
+        values, grads = as_batched(fp)(Z)
         np.testing.assert_allclose(to_np(values), np.asarray(jax.vmap(fj)(jnp.asarray(want))), rtol=1e-10)
         np.testing.assert_allclose(to_np(grads), np.asarray(jax.vmap(jax.grad(fj))(jnp.asarray(want))),
                                    rtol=1e-10, atol=1e-10)
@@ -140,6 +141,7 @@ def test_laplace_start_clips_and_reports_sigma(caplog):
     (tests/test_smc.py:394-441); q stays usable."""
     curvature = t64([1.0, 1.0, 0.0, 1e8])
 
+    @BatchedPotential
     def value_and_grad(Z):
         return 0.5 * torch.sum(curvature * Z * Z, dim=1), curvature * Z
 
@@ -147,7 +149,7 @@ def test_laplace_start_clips_and_reports_sigma(caplog):
     propagate, logger.propagate = logger.propagate, True
     try:
         with caplog.at_level(logging.INFO, logger="mellon_tpu_torch"):
-            _, kw = smc.laplace_start(value_and_grad, None, lambda z: curvature.clone(),
+            _, kw = smc.laplace_start_value_and_grad(value_and_grad, None, lambda z: curvature.clone(),
                                       z_map=torch.zeros(4, dtype=torch.float64))
     finally:
         logger.propagate = propagate
@@ -155,7 +157,7 @@ def test_laplace_start_clips_and_reports_sigma(caplog):
     assert clipped and clipped[-1].levelno >= logging.WARNING and "2 of 4" in clipped[-1].message
     samples = kw["prior_sample"](Draws(torch.Generator().manual_seed(0)), 8)
     assert torch.isfinite(samples).all() and float(samples[:, 2].std()) < 3 * smc.LAPLACE_SIGMA_MAX
-    assert torch.isfinite(kw["prior_logpdf"](samples)[0]).all()
+    assert torch.isfinite(as_batched(kw["prior_logpdf"])(samples)[0]).all()
 
 
 def test_density_loglik_matches_jax(fitted):

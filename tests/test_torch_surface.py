@@ -3,8 +3,10 @@ exported names, the legacy module paths, logging, PhaseTimer and trace,
 the density gradient and diffusion helpers, and the reprs."""
 
 import importlib
+import inspect
 import logging
 import os
+import pkgutil
 import types
 
 import jax.numpy as jnp
@@ -44,32 +46,160 @@ def test_exports_cover_the_jax_package(subpackage):
         assert hasattr(port, name), name
 
 
-def _public(module):
-    """The public names a module defines itself (not its imports)."""
-    return {name for name, value in vars(module).items()
-            if not name.startswith("_") and not isinstance(value, types.ModuleType)
-            and getattr(value, "__module__", module.__name__) == module.__name__}
+# ROADMAP's "Do not port": the modules and names of mellon_tpu the port does
+# not take, each with its reason, and the parameters it renames
+DO_NOT_PORT_MODULES = {
+    "models.fused": "the fused TPU prepare; the port's eager prepare replaces it",
+    "ops.extended_precision": "double-single float64 emulation; the card has native float64",
+    "ops.pallas_kernels": "the Pallas tile; its CUDA counterpart is ops.hopper_kernels (K1)",
+}
+DO_NOT_PORT_NAMES = {
+    "default_float": "JAX's x64 switch; the port's precision is the estimator's dtype=",
+    "is_x64": "JAX's x64 switch",
+    "setup_jax": "configures JAX itself",
+    "set_jax_config": "configures JAX itself",
+    "HOST_F64_BUDGET": "the host float64 rescue; the port rescues in float64 on the card",
+    "host_cholesky_f64": "the host float64 rescue",
+    "MATVEC_PRECISION": "the TPU matmul precision; the port runs IEEE float32 (TF32 off)",
+    "TRSM_CHUNK_ROWS": "TRSM row-chunking, a workaround for the 16 GB v5e",
+    "TRSM_CHUNK_MIN_M": "TRSM row-chunking",
+    "TRSM_CHUNK_MIN_N": "TRSM row-chunking",
+    "chunked_whiten": "TRSM row-chunking",
+    "eval_operand_spec": "covariance operand specs; PyTorch evaluates a composite eagerly",
+    "operand_spec": "Covariance.operand_spec: covariance operand specs",
+    "models.DEFAULT_JIT": "the models' jit default; the port accepts and ignores jit",
+}
+RENAMED_PARAMETERS = {
+    "key": "generator",  # a torch.Generator where JAX takes a PRNG key
+    "sync_arrays": "sync_tensors",  # PhaseTimer.phase's tensors to wait for
+}
 
 
-@pytest.mark.parametrize("module, some", [
-    ("ops.neighbors", {"knn_ivf", "IVF_THRESHOLD", "DEFAULT_COL_BLOCK"}),
-    ("ops.cluster", {"k_means", "DEFAULT_N_ITER"}),
-])
+def _jax_modules():
+    """Every module of mellon_tpu (relative names; "" the package) but
+    ROADMAP's "Do not port" ones."""
+    names = [""] + [m.name.split(".", 1)[1]
+                    for m in pkgutil.walk_packages(mellon_tpu.__path__, "mellon_tpu.")]
+    return [m for m in names if m not in DO_NOT_PORT_MODULES]
+
+
+def _modules(module):
+    suffix = f".{module}" if module else ""
+    return (importlib.import_module("mellon_tpu" + suffix),
+            importlib.import_module("mellon_tpu_torch" + suffix))
+
+
+def _not_ported(module, name):
+    return name in DO_NOT_PORT_NAMES or (
+        module.split(".")[0] == "models" and f"models.{name}" in DO_NOT_PORT_NAMES)
+
+
+def _public(module, relative=""):
+    """The public names a module of mellon_tpu defines or re-exports from
+    mellon_tpu (not its third-party imports), less "Do not port"."""
+    names = set()
+    for name, value in vars(module).items():
+        if name.startswith("_") or isinstance(value, types.ModuleType) or _not_ported(relative, name):
+            continue
+        if callable(value) and not getattr(value, "__module__", "").startswith("mellon_tpu"):
+            continue
+        names.add(name)
+    return names
+
+
+# the first two cases are the ones the test had before it took every module
+_NAME_CASES = [("ops.neighbors", {"knn_ivf", "IVF_THRESHOLD", "DEFAULT_COL_BLOCK"}),
+               ("ops.cluster", {"k_means", "DEFAULT_N_ITER"})]
+_NAME_CASES += [(m, set()) for m in _jax_modules() if m not in dict(_NAME_CASES)]
+
+
+@pytest.mark.parametrize("module, some", _NAME_CASES)
 def test_module_names_cover_the_jax_module(module, some):
-    """Every public name of mellon_tpu.ops.neighbors and .cluster (the
-    functions and constants it defines) has a counterpart of the same
-    name, a constant the same value; ROADMAP's "Do not port" keeps none
-    of them."""
-    jax_module = importlib.import_module(f"mellon_tpu.{module}")
-    port = importlib.import_module(f"mellon_tpu_torch.{module}")
-    names = _public(jax_module)
+    """Every public name of each module of mellon_tpu (the functions,
+    classes and constants it defines or re-exports from mellon_tpu) has a
+    counterpart of the same name in the port's module, a constant the same
+    value (but the package's own name, ops.kernels.PACKAGE_NAME); the
+    modules and names of ROADMAP's "Do not port" excepted."""
+    jax_module, port = _modules(module)
+    names = _public(jax_module, module)
     assert some <= names
     missing = {name for name in names if not hasattr(port, name)}
     assert not missing, missing
-    for name in names:
+    for name in names - {"PACKAGE_NAME"}:
         value = getattr(jax_module, name)
-        if isinstance(value, (int, float)):
+        if isinstance(value, (int, float, str, tuple)):
             assert getattr(port, name) == value, name
+
+
+def _parameters(fn):
+    """``[(name, kind)]`` of fn's signature, JAX's renamed parameters under
+    the port's names; None where it has none to read."""
+    try:
+        parameters = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return None
+    return [(RENAMED_PARAMETERS.get(p.name, p.name), p.kind) for p in parameters]
+
+
+def _holds_parameters(jax_fn, port_fn):
+    """The port's signature holds JAX's parameters: its positional ones
+    first and in JAX's order, the same ``*args`` at the same place, JAX's
+    keyword-only ones and ``**kwargs``; port-only parameters may follow."""
+    want, got = _parameters(jax_fn), _parameters(port_fn)
+    if want is None:
+        return True
+    if got is None:
+        return False
+    positional = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    want_pos = [n for n, k in want if k in positional]
+    got_pos = [n for n, k in got if k in positional]
+    if got_pos[: len(want_pos)] != want_pos:
+        return False
+    got_names = [n for n, _ in got]
+    for name, kind in want:
+        if kind in (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD):
+            if (name, kind) not in got:
+                return False
+            if kind == inspect.Parameter.VAR_POSITIONAL and len(got_pos) != len(want_pos):
+                return False
+        elif kind == inspect.Parameter.KEYWORD_ONLY and name not in got_names:
+            return False
+    return True
+
+
+def _callables(relative):
+    """(qualified name, JAX callable, the port's counterpart or None) of
+    every public function of a module and every public method (and
+    ``__init__``, ``__call__``) of its public classes."""
+    jax_module, port = _modules(relative)
+    for name in sorted(_public(jax_module, relative)):
+        value = getattr(jax_module, name)
+        port_value = getattr(port, name, None)
+        if inspect.isclass(value):
+            for attr in sorted(dir(value)):
+                if (attr.startswith("_") and attr not in ("__init__", "__call__")) or \
+                        _not_ported(relative, attr):
+                    continue
+                if isinstance(inspect.getattr_static(value, attr, None), property):
+                    continue
+                method = getattr(value, attr)
+                if callable(method):
+                    yield f"{name}.{attr}", method, getattr(port_value, attr, None)
+        elif callable(value):
+            yield name, value, port_value
+
+
+@pytest.mark.parametrize("module", _jax_modules())
+def test_callable_parameters_match_the_jax_module(module):
+    """Every public function of each module of mellon_tpu, and every
+    public method of its public classes, has a counterpart in the port
+    whose signature holds JAX's parameter names in JAX's positional order
+    (port-only parameters after them), with ROADMAP's "Do not port" names
+    excepted and its renamed parameters (``key`` → ``generator``,
+    ``*sync_arrays`` → ``*sync_tensors``) under the port's names."""
+    mismatched = [name for name, jax_fn, port_fn in _callables(module)
+                  if port_fn is None or not _holds_parameters(jax_fn, port_fn)]
+    assert not mismatched, mismatched
 
 
 @pytest.mark.parametrize(

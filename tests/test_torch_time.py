@@ -772,13 +772,13 @@ def test_batched_ls_time_nonfinite_falls_back_to_loop(data, monkeypatch):
     xt = np.concatenate([x, times[:, None]], axis=1)
     nn = tp.compute_nn_distances_within_time_points(t64(xt))
     calls = []
-    real = tlt.minimize_lbfgs
+    real = tlt.minimize_lbfgs_value_and_grad
 
     def diverged(fun, z0, **kwargs):
         calls.append(z0.clone())
         return real(fun, z0, max_iter=1)._replace(loss=float("nan"))
 
-    monkeypatch.setattr(tlt, "minimize_lbfgs", diverged)
+    monkeypatch.setattr(tlt, "minimize_lbfgs_value_and_grad", diverged)
     with _Records("mellon_tpu_torch") as log:
         out = tlt._batched_ls_time_densities(t64(xt), nn, mt.Matern52, {}, torch.unique(t64(times)), 0)
     assert out is None and len(calls) == 2

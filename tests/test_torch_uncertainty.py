@@ -15,15 +15,15 @@ from mellon_tpu.inference.losses import density_loss as jax_density_loss
 from mellon_tpu.inference.optimizers import minimize_adam as jax_minimize_adam
 import mellon_tpu_torch
 from mellon_tpu_torch import state_from_jax
-from mellon_tpu_torch.inference.advi import elbo_estimate, run_advi
+from mellon_tpu_torch.inference.advi import elbo_from_draws, run_advi_batch
 from mellon_tpu_torch.inference.factories import compute_conditional
-from mellon_tpu_torch.inference.laplace import compute_laplace_std
+from mellon_tpu_torch.inference.laplace import laplace_std_from_diagonal
 from mellon_tpu_torch.inference.losses import (
     density_hessian_diagonal,
     make_density_loss_batch,
     make_density_value_and_grad,
 )
-from mellon_tpu_torch.inference.optimizers import minimize_adam
+from mellon_tpu_torch.inference.optimizers import minimize_adam_value_and_grad
 
 
 def _problem(n=200, k=40, seed=50):
@@ -47,7 +47,7 @@ def test_laplace_std_matches_jax():
     want = np.asarray(jax_laplace_std(
         jax_density_loss, jnp.asarray(z), loss_args=(jnp.asarray(L), jnp.asarray(nn), d, mu)
     ))
-    got = compute_laplace_std(density_hessian_diagonal(t64(z), t64(L), t64(nn), d, mu))
+    got = laplace_std_from_diagonal(density_hessian_diagonal(t64(z), t64(L), t64(nn), d, mu))
     np.testing.assert_allclose(to_np(got), want, rtol=1e-10)
 
 
@@ -72,7 +72,7 @@ def test_adam_matches_jax():
         jax_density_loss, jnp.asarray(z0), n_iter=50,
         loss_args=(jnp.asarray(L), jnp.asarray(nn), d, mu),
     )
-    got = minimize_adam(make_density_value_and_grad(t64(L), t64(nn), d, mu), t64(z0), n_iter=50)
+    got = minimize_adam_value_and_grad(make_density_value_and_grad(t64(L), t64(nn), d, mu), t64(z0), n_iter=50)
     np.testing.assert_allclose(
         to_np(got.pre_transformation), np.asarray(want.pre_transformation), rtol=1e-8, atol=1e-12
     )
@@ -92,7 +92,7 @@ def test_elbo_matches_jax_on_its_draws():
     ))
     keys = jax.random.split(key, 40)
     draws = np.asarray(jax.vmap(lambda k: jax.random.normal(k, z.shape))(keys))
-    got = elbo_estimate(
+    got = elbo_from_draws(
         make_density_loss_batch(t64(L), t64(nn), d, mu), t64(z), t64(log_std), t64(draws)
     )
     np.testing.assert_allclose(float(got), want, rtol=1e-10)
@@ -107,7 +107,7 @@ def test_advi_on_a_gaussian():
     def loss_batch(Z):
         return 0.5 * torch.sum(scales * (Z - center) ** 2, dim=1)
 
-    res = run_advi(
+    res = run_advi_batch(
         loss_batch, torch.zeros(3, dtype=torch.float64), n_iter=600, init_learn_rate=0.1,
         generator=torch.Generator().manual_seed(0),
     )
@@ -135,7 +135,7 @@ def test_advi_density_within_the_seed_spread_of_jax():
     ]
     f0, f1 = (np.asarray(jest.L @ r.pre_transformation + jest.mu) for r in runs)
     L, nn = t64(jest.L), t64(jest.nn_distances)
-    res = run_advi(
+    res = run_advi_batch(
         make_density_loss_batch(L, nn, jest.d, jest.mu), t64(jest.initial_value),
         generator=torch.Generator().manual_seed(0),
     )
@@ -179,7 +179,7 @@ def test_estimator_same_map_laplace_and_uncertainty(laplace_fit):
     uncertainty (diagonal and full) agree to 1e-8 relative."""
     x, jest, x_new = laplace_fit
     est = state_from_jax(jest, **CPU64)
-    std = compute_laplace_std(density_hessian_diagonal(
+    std = laplace_std_from_diagonal(density_hessian_diagonal(
         est.pre_transformation, est.L, est.nn_distances, est.d, est.mu
     ))
     np.testing.assert_allclose(to_np(std), np.asarray(jest.pre_transformation_std), rtol=1e-8)
