@@ -303,7 +303,10 @@ TRACE_TRANSITIONS = 10
 FUNCTIONAL_NUTS = dict(num_chains=16, num_warmup=20, num_samples=5, max_tree_depth=6)
 FUNCTIONAL_PRECOND = dict(num_chains=16, num_warmup=100, num_samples=100, max_tree_depth=10)
 FUNCTIONAL_MAX_RHAT = 1.05
-FUNCTIONAL_MIN_CORR = 0.999
+# the corr bar of the torch.func route (and of the inline loss through the
+# optimizers) against the fused route: the H100 read 1 - 6e-9 and, for the
+# inline L-BFGS, 0.99999998 (PERF.md)
+FUNCTIONAL_MIN_CORR = 0.99999
 FUNCTIONAL_LAPLACE_REL = 1e-5
 FUNCTIONAL_ADAM_STEPS = 100
 FUNCTIONAL_SMC_PARTICLES = 256
@@ -1114,7 +1117,7 @@ def functional_path(mt, est, x_np, ld):
     import numpy as np
     import torch
 
-    from mellon_tpu_torch.inference import advi, laplace, mcmc, optimizers, samplers, smc
+    from mellon_tpu_torch.inference import advi, laplace, losses, mcmc, optimizers, samplers, smc
     from mellon_tpu_torch.inference.diagnostics import split_rhat
     from mellon_tpu_torch.inference.losses import (
         density_hessian_diagonal,
@@ -1138,18 +1141,18 @@ def functional_path(mt, est, x_np, ld):
 
     # run_mcmc(density_loss, ..., potential_args) against the batched call
     fn, cargs = mcmc.zero_centered_potential(density_loss, z_map, args)
-    built, fused = [], samplers.make_density_value_and_grad_batch
+    built, fused = [], losses.make_density_value_and_grad_batch
 
     def spy(*a, **kw):
         built.append(len(a))
         return fused(*a, **kw)
 
-    samplers.make_density_value_and_grad_batch = spy
+    losses.make_density_value_and_grad_batch = spy
     try:
         functional, functional_s = synced_seconds(lambda: mcmc.run_mcmc(
             fn, z_map, gen(5), potential_args=cargs, **FUNCTIONAL_NUTS))
     finally:
-        samplers.make_density_value_and_grad_batch = fused
+        losses.make_density_value_and_grad_batch = fused
     batched = make_density_value_and_grad_batch(*cargs[:5], center=cargs[5])
     direct, direct_s = synced_seconds(lambda: mcmc.run_mcmc(batched, z_map, gen(5), **FUNCTIONAL_NUTS))
     check("fused route", built == [5] and same_fields(functional, direct, fields), {

@@ -11,11 +11,12 @@ so :func:`elbo_from_draws` takes the draws as a tensor and a test can feed
 it JAX's own.
 
 :func:`run_advi` and :func:`elbo_estimate` take the JAX package's
-arguments, a scalar ``loss_func(z, *loss_args)`` (or ``logprob(z)``), a
-``seed`` or a ``torch.Generator`` where JAX takes a key; the scalar is
-evaluated at the batch by :func:`.samplers.batched_values`, the density
-loss in closed form.  The estimators hand :func:`run_advi_batch` their
-batched loss.
+arguments, a scalar ``loss_func(z, *loss_args)`` (or ``logprob(z)``), and
+JAX's ``seed`` (``run_advi``) or a ``torch.Generator`` where JAX takes a
+key (``elbo_estimate``); the scalar is evaluated at the batch by the
+autograd batch of :func:`.samplers.as_batched` (the density loss in closed
+form).  The estimators hand :func:`run_advi_batch` their batched loss and
+generator.
 """
 
 import math
@@ -23,9 +24,8 @@ from collections import namedtuple
 
 import torch
 
-from .losses import density_loss, make_density_loss_batch
 from .optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, adam_init, adam_step
-from .samplers import batched_values
+from .samplers import as_batched
 
 DEFAULT_NUM_SAMPLES = 40
 
@@ -53,18 +53,8 @@ def elbo_estimate(logprob, generator, mean, log_std, num_samples):
     log_std)."""
     draws = torch.randn((int(num_samples),) + tuple(mean.shape), generator=generator,
                         dtype=mean.dtype, device=mean.device)
-    logprob_batch = batched_values(logprob)
+    logprob_batch = as_batched(logprob).values
     return elbo_from_draws(lambda Z: -logprob_batch(Z), mean, log_std, draws)
-
-
-def loss_batch_of(loss_func, loss_args=()):
-    """``Z -> losses (S,)`` of ``loss_func(z, *loss_args)`` at each row,
-    differentiable by autograd: the density loss's
-    :func:`.losses.make_density_loss_batch` (the estimator's form), any
-    other by :func:`.samplers.batched_values`."""
-    if loss_func is density_loss and len(loss_args) == 4:
-        return make_density_loss_batch(*loss_args)
-    return batched_values(loss_func, loss_args)
 
 
 def run_advi(
@@ -76,16 +66,14 @@ def run_advi(
     jit=True,
     seed=0,
     loss_args=(),
-    generator=None,
 ):
     """Fit a mean-field Gaussian to exp(−loss_func) for the scalar
     ``loss_func(z, *loss_args)``, as the JAX package's: the noise from a
-    ``torch.Generator`` seeded with ``seed`` on the parameters' device (or
-    ``generator``); ``jit`` is accepted and ignored.  Returns ``(mean,
-    std, losses)`` (:func:`run_advi_batch`)."""
-    if generator is None:
-        generator = torch.Generator(device=initial_parameters.device).manual_seed(int(seed))
-    return run_advi_batch(loss_batch_of(loss_func, loss_args), initial_parameters, n_iter=n_iter,
+    ``torch.Generator`` seeded with ``seed`` on the parameters' device;
+    ``jit`` is accepted and ignored.  Returns ``(mean, std, losses)``
+    (:func:`run_advi_batch`, which takes a generator)."""
+    generator = torch.Generator(device=initial_parameters.device).manual_seed(int(seed))
+    return run_advi_batch(as_batched(loss_func, loss_args).values, initial_parameters, n_iter=n_iter,
                           init_learn_rate=init_learn_rate, nsamples=nsamples, generator=generator)
 
 

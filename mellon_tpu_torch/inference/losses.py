@@ -33,6 +33,7 @@ float32 of the bf16-rounded values, as the JAX package's promotion of
 bf16 × f32 gives them, without a float32 copy of L.
 """
 
+import logging
 import math
 
 import torch
@@ -46,6 +47,7 @@ from .likelihoods import (
     poisson_terms,
 )
 
+logger = logging.getLogger("mellon_tpu_torch")
 
 # rows of a bfloat16 L upcast at a time
 BF16_CHUNK_ROWS = 65536
@@ -64,18 +66,75 @@ class BatchedPotential:
     The functional inference API (``run_mcmc``, ``run_smc``, the
     optimizers, ...) takes the JAX package's scalar ``f(z, *args)``; a
     callable of this type is taken as it is instead
-    (:func:`.samplers.as_batched`).  ``hessian(z) -> (k, k)`` and
-    ``hessian_diagonal(z) -> (k,)`` are its curvature where it has a closed
-    form, else None.
+    (:func:`.samplers.as_batched`).  It also carries the forms the API
+    asks of the function, in closed form where it has one (the density
+    loss's: :func:`density_potential`):
+
+    * ``hessian(z) -> (k, k)`` and ``hessian_diagonal(z) -> (k,)``, else
+      None;
+    * :meth:`one_row`, the value and gradient at one latent vector (the
+      optimizers);
+    * :meth:`values`, the values differentiable by autograd (ADVI);
+    * :meth:`loglik`, the batched likelihood term (SMC);
+    * ``centered_operands(z0)``, the operands that zero-centre the function
+      at z0 (``mcmc.zero_centered_potential``), else None.
     """
 
-    def __init__(self, value_and_grad, hessian=None, hessian_diagonal=None):
+    def __init__(self, value_and_grad, hessian=None, hessian_diagonal=None, one_row=None,
+                 values=None, loglik=None, centered_operands=None):
         self.value_and_grad = value_and_grad
         self.hessian = hessian
         self.hessian_diagonal = hessian_diagonal
+        self.centered_operands = centered_operands
+        self._one_row, self._values, self._loglik = one_row, values, loglik
 
     def __call__(self, Z):
         return self.value_and_grad(Z)
+
+    def one_row(self, z):
+        """``(value, gradient)`` at one latent vector z (any shape; by
+        default evaluated as a batch of one)."""
+        if self._one_row is not None:
+            return self._one_row(z)
+        values, grads = self.value_and_grad(z[None])
+        return values[0], grads[0]
+
+    def values(self, Z):
+        """``values (S,)`` at the rows of Z, differentiable by autograd
+        (by default through the batched gradients)."""
+        if self._values is not None:
+            return self._values(Z)
+        return _BatchedValues.apply(Z, self.value_and_grad)
+
+    def loglik(self):
+        """The likelihood term of this negative log posterior with the
+        N(0, I) prior of the whitened latents, −value − log prior, as a
+        batched potential."""
+        if self._loglik is not None:
+            return self._loglik
+
+        def loglik(Z):
+            values, grads = self.value_and_grad(Z)
+            prior = -0.5 * torch.sum(Z * Z, dim=1) - 0.5 * Z.shape[1] * math.log(2 * math.pi)
+            return -values - prior, -grads + Z
+
+        return BatchedPotential(loglik)
+
+
+class _BatchedValues(torch.autograd.Function):
+    """The values of a batched potential as a function autograd can
+    differentiate, by its own gradients: ``apply(Z, value_and_grad)``."""
+
+    @staticmethod
+    def forward(ctx, Z, value_and_grad):
+        values, grads = value_and_grad(Z.detach())
+        ctx.save_for_backward(grads)
+        return values
+
+    @staticmethod
+    def backward(ctx, grad_values):
+        (grads,) = ctx.saved_tensors
+        return grad_values.reshape((-1,) + (1,) * (grads.dim() - 1)) * grads, None
 
 
 def _matmul(L, Z):
@@ -270,6 +329,38 @@ def make_density_loglik_batch(L, nn_distances, d, mu):
         return torch.sum((F + Vdr) - E, dim=0), (L.T @ (1 - E)).T
 
     return BatchedPotential(loglik)
+
+
+def density_potential(args):
+    """:func:`density_loss` at its operands ``args`` (L, nn_distances, d,
+    mu[, loss_offset_per_term[, center]]) as a :class:`BatchedPotential`
+    with every closed form: the batch and its curvature
+    (:func:`make_density_value_and_grad_batch`), one row
+    (:func:`make_density_value_and_grad`, which also reads a bfloat16 L;
+    without a centre), and, for the four operands of the plain loss, the
+    autograd batch (:func:`make_density_loss_batch`), the likelihood term
+    (:func:`make_density_loglik_batch`) and the zero-centring operands."""
+    L, nn_distances, d, mu, offset, center = tuple(args) + (0.0, None)[len(args) - 4:]
+    batch = make_density_value_and_grad_batch(L, nn_distances, d, mu, offset, center=center)
+    one_row = None if center is not None else make_density_value_and_grad(L, nn_distances, d, mu,
+                                                                            offset)
+    if len(args) != 4:
+        return BatchedPotential(batch.value_and_grad, batch.hessian, batch.hessian_diagonal,
+                                one_row=one_row)
+
+    def centered_operands(z0):
+        offset, v0 = zero_centering_offset(z0, *args)
+        logger.info(
+            "Zero-centering the sampled potential: loss(z0) = %.6g over %s cells "
+            "(offset %.6g/term); reported potentials are relative to z0.",
+            v0, f"{L.shape[0]:,}", offset,
+        )
+        return tuple(args) + (offset, z0)
+
+    return BatchedPotential(batch.value_and_grad, batch.hessian, batch.hessian_diagonal,
+                            one_row=one_row, values=make_density_loss_batch(*args),
+                            loglik=make_density_loglik_batch(*args),
+                            centered_operands=centered_operands)
 
 
 # rows of L per step of the Hessian and its diagonal: bounds their (rows, k)

@@ -44,7 +44,7 @@ import torch
 
 from ..ops.linalg import _cholesky_f64_rescue, _jittered_cholesky
 from ..parallel.mesh import broadcast_from_first_rank, check_sharding, sampling_block
-from .losses import BatchedPotential, density_hessian, density_loss, zero_centering_offset
+from .losses import BatchedPotential, density_hessian, density_loss
 from .samplers import (
     ScalarPotential,
     as_batched,
@@ -265,8 +265,10 @@ def zero_centered_potential(potential_fn, z0, potential_args):
     ``(potential_fn, potential_args)`` with ``loss_offset_per_term`` =
     loss(z0)/n (as a float32 number) and ``center`` z0 appended to the
     operands, for which ``losses.density_loss`` computes its z-dependent
-    part around z0.  Any other potential, or one whose operands already
-    carry an offset, comes back unchanged, as in the JAX package.
+    part around z0 (the ``centered_operands`` of its
+    :func:`.samplers.as_batched` form).  Any other potential, or one whose
+    operands already carry an offset, comes back unchanged, as in the JAX
+    package.
 
     The potential is O(n), and one float32 ulp of it can exceed the energy
     differences of a leapfrog step, which then quantize; dual averaging
@@ -280,16 +282,10 @@ def zero_centered_potential(potential_fn, z0, potential_args):
     gives the same potential with its cells sharded
     (:func:`..parallel.shard_density_model`).
     """
-    if potential_fn is not density_loss or len(potential_args) != 4:
+    centered_operands = as_batched(potential_fn, potential_args).centered_operands
+    if centered_operands is None:
         return potential_fn, potential_args
-    L = potential_args[0]
-    offset, v0 = zero_centering_offset(z0, *potential_args)
-    logger.info(
-        "Zero-centering the sampled potential: loss(z0) = %.6g over %s cells "
-        "(offset %.6g/term); reported potentials are relative to z0.",
-        v0, f"{L.shape[0]:,}", offset,
-    )
-    return potential_fn, tuple(potential_args) + (offset, z0)
+    return potential_fn, centered_operands(z0)
 
 
 def zero_centered_density_potential(z0, L, nn_distances, d, mu):
@@ -386,17 +382,6 @@ def hessian_preconditioner(value_and_grad, hessian, z0, chain_sharding=None):
         both = broadcast_from_first_rank(torch.cat([z_map[None], T]))
         z_map, T = both[0], both[1:]
     return z_map, T, (gn0, gn1)
-
-
-def autograd_hessian(potential):
-    """``z -> H`` of a row-wise torch potential ``Z (C, k) -> (C,)`` by
-    autograd: the Hessian of potentials without a closed form (the tests'
-    small targets)."""
-
-    def hessian(z):
-        return torch.autograd.functional.hessian(lambda v: potential(v[None])[0], z)
-
-    return hessian
 
 
 def _hvp_hessian(potential_fn, potential_args, z, block):

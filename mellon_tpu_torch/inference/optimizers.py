@@ -39,8 +39,7 @@ from collections import deque, namedtuple
 
 import torch
 
-from .losses import BatchedPotential, density_loss, make_density_value_and_grad
-from .samplers import ScalarPotential, as_batched, density_operands
+from .samplers import as_batched
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -253,46 +252,12 @@ def minimize_lbfgs_value_and_grad(
     return result
 
 
-def _autograd_value_and_grad(loss_func, *loss_args):
-    """``z -> (loss, gradient)`` of the scalar torch loss
-    ``loss_func(z, *loss_args)`` by autograd."""
-
-    def value_and_grad(z):
-        with torch.enable_grad():
-            zg = z.detach().requires_grad_(True)
-            value = loss_func(zg, *loss_args)
-            (grad,) = torch.autograd.grad(value, zg)
-        return value.detach(), grad
-
-    return value_and_grad
-
-
-def _one_row(value_and_grad):
-    """A batched potential as ``z -> (loss, gradient)`` at one latent
-    vector (any shape: it is evaluated as a batch of one)."""
-
-    def fun(z):
-        values, grads = value_and_grad(z[None])
-        return values[0], grads[0]
-
-    return fun
-
-
 def value_and_grad_of(loss_func, *loss_args):
     """``z -> (loss, gradient)`` of ``loss_func(z, *loss_args)`` for the
-    optimizers, by the routes of :func:`.samplers.as_batched`: the density
-    loss in closed form (:func:`.losses.make_density_value_and_grad`,
-    which also reads a bfloat16 L, or the centred batch form), a
-    :class:`.losses.BatchedPotential` or a
-    :class:`.samplers.ScalarPotential` at one row of its batched form, any
-    other scalar loss by autograd."""
-    if loss_func is density_loss:
-        L, nn_distances, d, mu, offset, center = density_operands(loss_args)
-        if center is None:
-            return make_density_value_and_grad(L, nn_distances, d, mu, offset)
-    if loss_func is density_loss or isinstance(loss_func, (BatchedPotential, ScalarPotential)):
-        return _one_row(as_batched(loss_func, loss_args))
-    return _autograd_value_and_grad(loss_func, *loss_args)
+    optimizers: the one-row form of :func:`.samplers.as_batched`'s batched
+    potential (the density loss in closed form, any other scalar loss by
+    autograd)."""
+    return as_batched(loss_func, loss_args).one_row
 
 
 def minimize_lbfgsb(

@@ -28,8 +28,8 @@ chosen by what the callable is and never by what it returns:
 * a :class:`.losses.BatchedPotential` (the port's own batched potentials:
   :func:`batched_value_and_grad`, ``losses.make_density_value_and_grad_batch``,
   the preconditioned and sharded ones) is taken as it is;
-* ``losses.density_loss`` itself, known by identity, becomes the closed
-  form ``make_density_value_and_grad_batch(*args)``, as the JAX package's
+* ``losses.density_loss`` itself, known by identity, becomes its closed
+  form ``losses.density_potential(args)``, as the JAX package's
   ``zero_centered_potential`` knows it; a :class:`ScalarPotential` (a
   scalar function this package builds, such as ``preconditioned_potential``'s)
   brings its own batched form, built from its base's;
@@ -37,6 +37,11 @@ chosen by what the callable is and never by what it returns:
   gradient, ``torch.func.vmap(torch.func.grad_and_value(f))``.  A
   function that cannot be vmapped raises; nothing loops over the rows
   in its place.
+
+This is the one place that tells the routes apart: the optimizers, ADVI,
+SMC, the Hessians and the zero-centring read the forms the returned
+:class:`.losses.BatchedPotential` carries (its one-row value and gradient,
+autograd batch, likelihood term, curvature and centring operands).
 
 One deliberate divergence: a NUTS transition counts the leapfrog steps it
 really took (:func:`_subtree_steps`).  The JAX package adds 2**depth for a
@@ -46,15 +51,12 @@ pushes dual averaging's step size down.
 """
 
 import copy
-import logging
 import math
 from typing import NamedTuple
 
 import torch
 
-from .losses import BatchedPotential, density_loss, make_density_value_and_grad_batch
-
-logger = logging.getLogger("mellon_tpu_torch")
+from .losses import BatchedPotential, density_loss, density_potential
 
 DIVERGENCE_THRESHOLD = 1000.0
 
@@ -177,11 +179,18 @@ class ScalarPotential:
         return self.fn(z, *args)
 
 
-def density_operands(args):
-    """``(L, nn_distances, d, mu, loss_offset_per_term, center)`` of
-    ``density_loss``'s operands ``args``, the defaults filled in."""
-    L, nn_distances, d, mu, offset, center = tuple(args) + (0.0, None)[len(args) - 4:]
-    return L, nn_distances, d, mu, offset, center
+def _autograd_value_and_grad(fn, args):
+    """``z -> (value, gradient)`` of the scalar torch function ``fn(z,
+    *args)`` by autograd."""
+
+    def value_and_grad(z):
+        with torch.enable_grad():
+            zg = z.detach().requires_grad_(True)
+            value = fn(zg, *args)
+            (grad,) = torch.autograd.grad(value, zg)
+        return value.detach(), grad
+
+    return value_and_grad
 
 
 def as_batched(potential_fn, potential_args=()):
@@ -195,8 +204,7 @@ def as_batched(potential_fn, potential_args=()):
             )
         return potential_fn
     if potential_fn is density_loss:
-        L, nn_distances, d, mu, offset, center = density_operands(potential_args)
-        return make_density_value_and_grad_batch(L, nn_distances, d, mu, offset, center=center)
+        return density_potential(potential_args)
     if isinstance(potential_fn, ScalarPotential):
         return potential_fn.batched(*potential_args)
     in_dims = (0,) + (None,) * len(potential_args)
@@ -206,35 +214,8 @@ def as_batched(potential_fn, potential_args=()):
         grads, values = grad_and_value(Z, *potential_args)
         return values, grads
 
-    return BatchedPotential(value_and_grad)
-
-
-class _BatchedValues(torch.autograd.Function):
-    """The values of a batched potential as a function autograd can
-    differentiate, by its own gradients: ``apply(Z, value_and_grad)``."""
-
-    @staticmethod
-    def forward(ctx, Z, value_and_grad):
-        values, grads = value_and_grad(Z.detach())
-        ctx.save_for_backward(grads)
-        return values
-
-    @staticmethod
-    def backward(ctx, grad_values):
-        (grads,) = ctx.saved_tensors
-        return grad_values.reshape((-1,) + (1,) * (grads.dim() - 1)) * grads, None
-
-
-def batched_values(potential_fn, potential_args=()):
-    """``Z (S, ...) -> values (S,)`` of the scalar ``potential_fn(z,
-    *potential_args)`` at each row, differentiable by autograd through the
-    gradients of :func:`as_batched` (ADVI's Monte-Carlo ELBO)."""
-    value_and_grad = as_batched(potential_fn, potential_args)
-
-    def values(Z):
-        return _BatchedValues.apply(Z, value_and_grad)
-
-    return values
+    return BatchedPotential(value_and_grad,
+                            one_row=_autograd_value_and_grad(potential_fn, potential_args))
 
 
 def _where(mask, new, old):

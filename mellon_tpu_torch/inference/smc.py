@@ -42,7 +42,7 @@ import torch
 from .laplace import hessian_diagonal_of, laplace_std_from_diagonal
 from .losses import BatchedPotential, density_loss, make_density_loglik_batch
 from ..parallel.mesh import Mesh, chain_sharding, check_sharding, sampling_block
-from .optimizers import _one_row, minimize_lbfgs_value_and_grad
+from .optimizers import minimize_lbfgs_value_and_grad
 from .samplers import ScalarPotential, as_batched, as_draws, hmc_init, hmc_kernel
 
 logger = logging.getLogger("mellon_tpu_torch")
@@ -62,38 +62,21 @@ SMC_LAPLACE_AUTO_N = 10_000
 _LOG_2PI = math.log(2 * math.pi)
 
 
-def _loglik_batch(value_and_grad):
-    """−loss − log prior of a batched negative log posterior."""
-
-    def loglik(Z):
-        values, grads = value_and_grad(Z)
-        prior = -0.5 * torch.sum(Z * Z, dim=1) - 0.5 * Z.shape[1] * _LOG_2PI
-        return -values - prior, -grads + Z
-
-    return BatchedPotential(loglik)
-
-
 def loglik_from_loss(loss_fn):
     """The likelihood term of the negative log posterior ``loss_fn(z,
     *args)`` with the N(0, I) prior of the whitened latents: −loss − log
     prior, the scalar ``loglik(z, *args)`` of the JAX package.  Batched
-    (:func:`.samplers.as_batched`) it is the loss's batched form less the
-    prior; of the density loss, its likelihood term in closed form
-    (:func:`.losses.make_density_loglik_batch`).  A batched ``loss_fn``
-    gives the batched log-likelihood."""
+    (:func:`.samplers.as_batched`) it is the loss's batched likelihood
+    term (:meth:`.losses.BatchedPotential.loglik`; the density loss's in
+    closed form).  A batched ``loss_fn`` gives the batched log-likelihood."""
     if isinstance(loss_fn, BatchedPotential):
-        return _loglik_batch(loss_fn)
+        return loss_fn.loglik()
 
     def loglik(z, *args):
         prior = -0.5 * torch.sum(z * z) - 0.5 * z.numel() * _LOG_2PI
         return -loss_fn(z, *args) - prior
 
-    def batched(*args):
-        if loss_fn is density_loss and len(args) == 4:
-            return make_density_loglik_batch(*args)
-        return _loglik_batch(as_batched(loss_fn, args))
-
-    return ScalarPotential(loglik, batched)
+    return ScalarPotential(loglik, lambda *args: as_batched(loss_fn, args).loglik())
 
 
 class SMCResult(NamedTuple):
@@ -332,15 +315,16 @@ def laplace_start_value_and_grad(value_and_grad, z0, hessian_diagonal, z_map=Non
     """The Laplace start of :func:`run_smc`: ``(adjusted loglik, prior
     kwargs)`` for q = N(z*, diag σ²) and log π(z) − log q(z), batched.
 
-    ``value_and_grad`` is the batched negative log posterior and
-    ``hessian_diagonal(z) -> (k,)`` its Hessian's diagonal.  ``z_map``
-    reuses a fitted MAP; otherwise L-BFGS from ``z0`` finds it.  σ is the
+    ``value_and_grad`` is the batched negative log posterior (a
+    :class:`.losses.BatchedPotential`) and ``hessian_diagonal(z) -> (k,)``
+    its Hessian's diagonal.  ``z_map`` reuses a fitted MAP; otherwise
+    L-BFGS from ``z0`` finds it, on the potential's one-row form.  σ is the
     diagonal Laplace std clipped into [LAPLACE_SIGMA_MIN,
     LAPLACE_SIGMA_MAX]; the target at β = 1 and the evidence are those of
     the prior start, on a short, well-mixed annealing path.
     """
     if z_map is None:
-        z_map = minimize_lbfgs_value_and_grad(_one_row(value_and_grad), z0).pre_transformation
+        z_map = minimize_lbfgs_value_and_grad(value_and_grad.one_row, z0).pre_transformation
     dim = int(z_map.shape[-1])
     sigma = laplace_std_from_diagonal(hessian_diagonal(z_map))
     n_low, n_high = torch.stack([

@@ -20,7 +20,6 @@ package's estimator keeps optimizing its density loss there).
 import logging
 
 from ..inference.factories import compute_conditional
-from ..inference.advi import loss_batch_of
 from ..inference.laplace import hessian_diagonal_of
 from ..inference.losses import (
     compute_log_density_x,
@@ -232,8 +231,9 @@ class DensityEstimator(BaseEstimator):
         self._make_value_and_grad = (
             (lambda *args: value_and_grad_of(loss_fn, *args)) if loss_args else None
         )
-        self._value_and_grad = value_and_grad_of(loss_fn, *loss_args)
-        self._loss_batch = loss_batch_of(loss_fn, loss_args)
+        batched = as_batched(loss_fn, loss_args)
+        self._value_and_grad = batched.one_row
+        self._loss_batch = batched.values
         self._hessian_diagonal = hessian_diagonal_of(loss_fn, loss_args)
         self._sampler_potential = lambda z0: as_batched(
             *zero_centered_potential(loss_fn, z0, loss_args))

@@ -14,11 +14,7 @@ float atomics (``scripts/cluster_sums_bench.py`` times both and a one-hot
 product).
 """
 
-import logging
-
 import torch
-
-logger = logging.getLogger("mellon_tpu_torch")
 
 DEFAULT_N_ITER = 30
 DEFAULT_ASSIGN_BLOCK = 4096

@@ -25,7 +25,9 @@ from mellon_tpu.inference import optimizers as jax_optimizers
 from mellon_tpu.inference import smc as jax_smc
 from mellon_tpu.inference.losses import density_loss as jax_density_loss
 from mellon_tpu_torch import state_from_jax
-from mellon_tpu_torch.inference import advi, derivatives, laplace, mcmc, optimizers, samplers, smc
+from mellon_tpu_torch.inference import (
+    advi, derivatives, laplace, losses, mcmc, optimizers, samplers, smc,
+)
 from mellon_tpu_torch.inference.losses import (
     BatchedPotential,
     density_loss,
@@ -131,13 +133,13 @@ def test_the_density_loss_takes_the_fused_route(monkeypatch):
     want = mcmc.run_mcmc(make_density_value_and_grad_batch(*args), t64(z),
                          torch.Generator().manual_seed(3), **run)
     calls = []
-    fused = samplers.make_density_value_and_grad_batch
+    fused = losses.make_density_value_and_grad_batch
 
     def spy(*a, **kw):
         calls.append(len(a))
         return fused(*a, **kw)
 
-    monkeypatch.setattr(samplers, "make_density_value_and_grad_batch", spy)
+    monkeypatch.setattr(losses, "make_density_value_and_grad_batch", spy)
     got = mcmc.run_mcmc(density_loss, t64(z), torch.Generator().manual_seed(3),
                         potential_args=args, **run)
     assert calls == [5]
@@ -153,7 +155,7 @@ def test_a_scalar_potential_is_vmapped(monkeypatch):
     L, nn, z, d, mu = _problem(seed=13)
     args = (t64(L), t64(nn), d, mu)
     Z = t64(z + 0.1 * np.random.RandomState(14).randn(5, z.shape[0]))
-    monkeypatch.setattr(samplers, "make_density_value_and_grad_batch",
+    monkeypatch.setattr(losses, "make_density_value_and_grad_batch",
                         lambda *a, **kw: pytest.fail("took the fused route"))
     values, grads = samplers.as_batched(user_density_loss, args)(Z)
     monkeypatch.undo()
@@ -166,6 +168,43 @@ def test_a_scalar_potential_is_vmapped(monkeypatch):
 
     with pytest.raises(RuntimeError):
         samplers.as_batched(unvmappable)(Z)
+
+
+def test_the_routes_carry_the_forms_the_api_reads():
+    """as_batched is where the routes part: the density loss's potential
+    carries every closed form the optimizers, ADVI, SMC, the Hessians and
+    the zero-centring read (each equal to its factory's), only the plain
+    loss's four operands carry the autograd batch, the likelihood term and
+    the centring; a scalar potential carries autograd's one row and the
+    defaults built from its vmapped batch."""
+    L, nn, z, d, mu = _problem(seed=15)
+    args = (t64(L), t64(nn), d, mu)
+    Z = t64(z + 0.1 * np.random.RandomState(16).randn(4, z.shape[0]))
+    zt = t64(z)
+    fused = samplers.as_batched(density_loss, args)
+    for got, want in ((fused.one_row(zt), losses.make_density_value_and_grad(*args)(zt)),
+                      (fused.loglik()(Z), losses.make_density_loglik_batch(*args)(Z)),
+                      ((fused.values(Z),), (losses.make_density_loss_batch(*args)(Z),)),
+                      ((fused.hessian(zt),), (losses.density_hessian(zt, *args),)),
+                      ((fused.hessian_diagonal(zt),), (losses.density_hessian_diagonal(zt, *args),))):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(to_np(g), to_np(w), rtol=1e-12, atol=1e-12)
+    centered = fused.centered_operands(zt)
+    assert centered[:4] == args and centered[5] is zt
+    assert centered[4] == losses.zero_centering_offset(zt, *args)[0]
+    offset = samplers.as_batched(density_loss, args + (0.5,))
+    assert offset.centered_operands is None
+    np.testing.assert_allclose(to_np(offset.values(Z)), to_np(offset(Z)[0]), rtol=1e-12)
+    scalar = samplers.as_batched(user_density_loss, args)
+    assert scalar.hessian is None and scalar.centered_operands is None
+    for got, want in ((scalar.one_row(zt), fused.one_row(zt)),
+                      (scalar.loglik()(Z), fused.loglik()(Z)),
+                      ((scalar.values(Z),), (fused.values(Z),))):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(to_np(g), to_np(w), rtol=1e-12, atol=1e-12)
+    Zg = Z.clone().requires_grad_(True)
+    (grad,) = torch.autograd.grad(scalar.values(Zg).sum(), Zg)
+    np.testing.assert_allclose(to_np(grad), to_np(fused(Z)[1]), rtol=1e-12, atol=1e-12)
 
 
 # ---------------------------------------------------------------------------

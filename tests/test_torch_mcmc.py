@@ -225,7 +225,7 @@ def test_hessian_preconditioned_sampling_on_an_ill_conditioned_gaussian():
     def potential(Z):
         return 0.5 * torch.sum(((Z - mean) @ prec) * (Z - mean), dim=1)
 
-    R = mcmc.factor_hessian(mcmc.autograd_hessian(potential)(mean), 1e-10)
+    R = mcmc.factor_hessian(mcmc.hessian_of(lambda z: potential(z[None])[0])(mean), 1e-10)
     np.testing.assert_allclose(to_np(R @ R.T), to_np(prec), rtol=2e-3, atol=1e-4)
     T = mcmc.precondition_transform(R)
     vg = mcmc.precondition_value_and_grad(samplers.batched_value_and_grad(potential), T, mean)

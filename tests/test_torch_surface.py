@@ -96,10 +96,12 @@ def _not_ported(module, name):
 
 def _public(module, relative=""):
     """The public names a module of mellon_tpu defines or re-exports from
-    mellon_tpu (not its third-party imports), less "Do not port"."""
+    mellon_tpu (not its third-party imports, nor its ``logger``, which is
+    module plumbing), less "Do not port"."""
     names = set()
     for name, value in vars(module).items():
-        if name.startswith("_") or isinstance(value, types.ModuleType) or _not_ported(relative, name):
+        if name.startswith("_") or isinstance(value, (types.ModuleType, logging.Logger)) or \
+                _not_ported(relative, name):
             continue
         if callable(value) and not getattr(value, "__module__", "").startswith("mellon_tpu"):
             continue
