@@ -6,7 +6,7 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3, 5-8, 11-26, 28 and 29) runs with the kernel's launch count set to 0
+Each path (3, 5-8, 11-26 and 28-30) runs with the kernel's launch count set to 0
 just before it and read just after, and fails if the kernel was not
 launched; the operands of every kernel call the covariance module makes on
 these paths are kept for phase 4.  Path 27's ranks are processes of their
@@ -64,7 +64,9 @@ any rank launched the kernel no time.
 9. wrapper: the host time of one ``matern52_gram`` call, over 1,000 calls
    without a synchronise, in turns with the call below its autograd
    routing;
-10. timing: the warm fit time (median of 3) and a per-stage breakdown;
+10. timing: the warm fit time (median of 3) with the fused prepare on
+   (its CUDA graphs replayed) and off (the lazy chain), in turns, and a
+   per-stage breakdown of the lazy chain;
 11. nuts: DensityEstimator(optimizer="nuts", predictor_with_uncertainty=True)
    with the estimator's default sampler settings (depth 10, step 0.1) but
    16 chains, 100 warmup transitions and 50 draws (NUTS_OPTIONS; the
@@ -216,7 +218,13 @@ any rank launched the kernel no time.
    search; knn(x, 3) of IVF_QUERY atlas rows in column strips of
    IVF_COL_BLOCK equal to one strip, both timed;
 29. tutorials (after 26): the four examples/*_tutorial_torch.py run to
-   their end through runpy on the card, seconds for each.
+   their end through runpy on the card, seconds for each;
+30. fused (right after 3): the fused prepare of each estimator family
+   (fused_path): every attribute of a replayed prepare equal to the lazy
+   chain's bit for bit; its seconds, its synchronizing calls, and the
+   stage graphs' nodes, pool bytes and capture seconds; the density's
+   stage seconds replayed and eager.  The kernel's launches inside a
+   graph count at each replay, with the graph's buffers as operands.
 
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
 elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
@@ -445,9 +453,12 @@ IVF_QUERY = 8192
 IVF_CPU_ROWS = 1024
 IVF_COL_BLOCK = 2**18
 TUTORIALS = ("basic", "gene_change_analysis", "time_series", "trajectory_trends")
-# the dimensionality model's NUTS at [nuts]'s budget; the checkpoint
-# resumes its chains for CHECKPOINT_DRAWS draws
-DIM_NUTS_OPTIONS = NUTS_OPTIONS
+# the dimensionality model's NUTS at [nuts]'s budget, its trees capped at
+# depth 7, the depth its draws reach at the default cap of 10 (127
+# leapfrogs each; the warmup's deeper trees took most of its time, and at
+# a cap of 6 its split-R-hat fails, PERF.md); the checkpoint resumes its
+# chains for CHECKPOINT_DRAWS draws
+DIM_NUTS_OPTIONS = dict(NUTS_OPTIONS, max_tree_depth=7)
 CHECKPOINT_DRAWS = 10
 PARALLEL_WORKER = os.path.join(ROOT, "scripts", "chip_smoke_parallel.py")
 PARALLEL_TIMEOUT = 300
@@ -510,17 +521,22 @@ def bare_launcher(lib, x, y, out, ls):
     """A call of the kernel library's C entry point on contiguous (x, y)
     into ``out``, on the current stream: the kernel alone, without the
     wrapper's checks, allocation and launch count.  Its scratch buffer,
-    for a library that takes one, is allocated here once."""
+    for a library that takes one, is allocated here once.  A length scale
+    that is a 0-d tensor on the card (a captured graph's) goes to the
+    entry that reads it there (``matern52_gram_*_dev_ls``)."""
     import torch
 
-    fn = lib.matern52_gram_f32 if x.dtype == torch.float32 else lib.matern52_gram_f64
+    dev_ls = isinstance(ls, torch.Tensor)
+    fn = getattr(lib, "matern52_gram_" + ("f32" if x.dtype == torch.float32 else "f64")
+                 + ("_dev_ls" if dev_ls else ""))
     n, m, d = x.shape[0], y.shape[0], x.shape[1]
     scratch = ()
     if hasattr(lib, "matern52_scratch_elems"):
         numel = lib.matern52_scratch_elems(n, m, d, x.element_size())
         scratch = (torch.empty(numel, dtype=x.dtype, device=x.device),)
     args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in scratch),
-            n, m, d, float(ls), x.device.index, torch.cuda.current_stream().cuda_stream)
+            n, m, d, ls.data_ptr() if dev_ls else float(ls), x.device.index,
+            torch.cuda.current_stream().cuda_stream)
 
     def launch():
         code = fn(*args)
@@ -531,23 +547,83 @@ def bare_launcher(lib, x, y, out, ls):
     return launch
 
 
-def record_operands():
-    """Keep the operands of every kernel call the covariance module makes
-    until the returned ``stop()`` is called; returns ``(calls, stop)``."""
-    from mellon_tpu_torch.ops import kernels
+# the covariance-level recorder (record_operands): the calls made while
+# each CUDA graph was captured, under id() of the graph's list of captured
+# launches (with the list, which keeps the id taken), the lists of the
+# recorders now active, and the wrapped functions while any is
+_GRAPH_CALLS = {}
+_RECORDINGS = []
+_WRAPPED = {}
 
-    launch = kernels.matern52_gram
-    calls = []
+
+def _install_recorder():
+    """Wrap the covariance module's kernel call (``kernels.matern52_gram``,
+    above the wrapper that counts launches) and the wrapper's replay count
+    (``hopper_kernels.count_replay``): a call goes to every active
+    recording, or, made while a CUDA graph is being captured (when it runs
+    only at the graph's replays), to the graph's calls, which each replay
+    adds to the active recordings."""
+    import torch
+
+    from mellon_tpu_torch.ops import hopper_kernels, kernels
+
+    launch, count_replay = kernels.matern52_gram, hopper_kernels.count_replay
 
     def recording(x, y, ls):
-        calls.append((x.detach(), y.detach(), float(ls)))
+        call = (x.detach(), y.detach(), ls)
+        if x.is_cuda and torch.cuda.is_current_stream_capturing():
+            graph = hopper_kernels._captured
+            if graph is None:
+                raise AssertionError("a matern52 call was captured outside captured_launches()")
+            _GRAPH_CALLS.setdefault(id(graph), (graph, []))[1].append(call)
+        else:
+            for calls in _RECORDINGS:
+                calls.append(call)
         return launch(x, y, ls)
 
-    def stop():
-        kernels.matern52_gram = launch
+    def replaying(graph):
+        for calls in _RECORDINGS:
+            calls.extend(_GRAPH_CALLS.get(id(graph), (graph, []))[1])
+        return count_replay(graph)
 
+    _WRAPPED.update(launch=launch, count_replay=count_replay)
     kernels.matern52_gram = recording
+    hopper_kernels.count_replay = replaying
+
+
+def record_operands():
+    """Keep the operands of every kernel call the covariance module makes,
+    eagerly or by replaying a graph captured while a recording ran, until
+    the returned ``stop()`` is called; returns ``(calls, stop)``.  The
+    count is kept apart from the wrapper's launch count, so that the two
+    agree only where every call launched the kernel.  A length scale is
+    kept as given: a number, or a 0-d tensor on the card (a graph's)."""
+    from mellon_tpu_torch.ops import hopper_kernels, kernels
+
+    if not _WRAPPED:
+        _install_recorder()
+    calls = []
+    _RECORDINGS.append(calls)
+
+    def stop():
+        _RECORDINGS.remove(calls)
+        if not _RECORDINGS:
+            kernels.matern52_gram = _WRAPPED["launch"]
+            hopper_kernels.count_replay = _WRAPPED.pop("count_replay")
+            _WRAPPED.clear()
+
     return calls, stop
+
+
+def host_calls(calls):
+    """The recorded calls whose operands lie off the card."""
+    return [(x, y) for x, y, _ in calls if x.device.type != "cuda" or y.device.type != "cuda"]
+
+
+def ls_source(ls):
+    """Where a kernel call's length scale lies: "device" for a 0-d tensor
+    on the card (a captured graph's), else "host"."""
+    return "device" if hasattr(ls, "data_ptr") else "host"
 
 
 def dtype_name(dtype):
@@ -575,7 +651,9 @@ def kernel_errors(K, plain, x, y, ls, name):
 
 def check_kernel(x, y, ls, label):
     """Kernel against plain version on (x, y) in float32 and float64;
-    returns the float32 error."""
+    returns the float32 error.  ``ls`` goes to the kernel as given (a
+    number, or a 0-d tensor on the card) and to the plain version as a
+    number."""
     import torch
 
     from mellon_tpu_torch.ops.hopper_kernels import matern52_gram, matern52_gram_reference
@@ -585,9 +663,9 @@ def check_kernel(x, y, ls, label):
         xa, ya = x.to(dtype), y.to(dtype)
         K = matern52_gram(xa, ya, ls)
         torch.cuda.synchronize()
-        plain = matern52_gram_reference(xa, ya, ls)
+        plain = matern52_gram_reference(xa, ya, float(ls))
         name = dtype_name(dtype)
-        err, kernel_f64, plain_f64, bar, ok = kernel_errors(K, plain, xa, ya, ls, name)
+        err, kernel_f64, plain_f64, bar, ok = kernel_errors(K, plain, xa, ya, float(ls), name)
         log(f"[kernel] {label} {n}x{m}x{d} {name}: max_abs_err={err!r}; against float64: "
             f"kernel {kernel_f64!r}, plain version {plain_f64!r} (bar {bar!r}) "
             f"{'ok' if ok else 'FAIL'}")
@@ -614,13 +692,14 @@ def time_shape(lib, x, y, ls, launches):
         xa, ya = x.to(dtype).contiguous(), y.to(dtype).contiguous()
         out = torch.empty((n, m), dtype=dtype, device=x.device)
         ms = device_ms(bare_launcher(lib, xa, ya, out, ls))
-        plain_ms = device_ms(lambda: matern52_gram_reference(xa, ya, ls))
+        plain_ms = device_ms(lambda: matern52_gram_reference(xa, ya, float(ls)))
         bound_ms, bound_by = matern52_bound_ms(n, m, d, name)
-        rows.append({"shape": f"{n}x{m}x{d}", "dtype": name,
+        rows.append({"shape": f"{n}x{m}x{d}", "dtype": name, "ls": ls_source(ls),
                      "launches": launches.get(name, 0),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "share": bound_ms / ms})
-        log(f"[kernel] {n}x{m}x{d} {name}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+        log(f"[kernel] {n}x{m}x{d} {name} ({ls_source(ls)} length scale): kernel {ms!r} ms, "
+            f"plain {plain_ms!r} ms, "
             f"bound {bound_ms!r} ms ({bound_by}), share {bound_ms / ms!r} "
             f"(median of {N_RUNS} runs of {N_LAUNCHES} launches)")
         del out
@@ -635,10 +714,12 @@ def kernel_phase(lib, calls):
 
     worst, rows, seen = 0.0, [], {}
     for x, y, ls in calls:
-        shape = (x.shape[0], y.shape[0], x.shape[1])
-        entry = seen.setdefault(shape, [x, y, ls, {}])
+        # a graph's launches read their length scale on the card: they are
+        # timed and checked through that entry, in rows of their own
+        key = (x.shape[0], y.shape[0], x.shape[1], ls_source(ls))
+        entry = seen.setdefault(key, [x, y, ls, {}])
         entry[3][dtype_name(x.dtype)] = entry[3].get(dtype_name(x.dtype), 0) + 1
-    for (n, m, d), (x, y, ls, launches) in seen.items():
+    for (n, m, d, _), (x, y, ls, launches) in seen.items():
         if n * m >= BIG_OUTPUT:
             for label, count in sorted(launches.items()):
                 err, row = predict_batch_phase(lib, x, y, ls, count, label)
@@ -675,15 +756,15 @@ def predict_batch_phase(lib, x, y, ls, launches, dtype_label="float32"):
     err = kernel_f64 = plain_f64 = 0.0
     for s in (slice(0, 2000), slice(n - 2000, n)) if n >= m else (slice(0, 2000), slice(m - 2000, m)):
         xs, ys, got = (x[s], y, out[s]) if n >= m else (x, y[s], out[:, s])
-        plain = matern52_gram_reference(xs, ys, ls)
-        e, k64, p64, bar, ok = kernel_errors(got, plain, xs, ys, ls, dtype_label)
+        plain = matern52_gram_reference(xs, ys, float(ls))
+        e, k64, p64, bar, ok = kernel_errors(got, plain, xs, ys, float(ls), dtype_label)
         err, kernel_f64, plain_f64 = max(err, e), max(kernel_f64, k64), max(plain_f64, p64)
         if not ok:
             raise AssertionError(f"matern52 kernel disagrees at {n}x{m}x{d} {dtype_label}: "
                                  f"{k64} against float64 (bar {bar})")
     del out
     if n * m <= 2**31:
-        plain_ms = device_ms(lambda: matern52_gram_reference(x, y, ls),
+        plain_ms = device_ms(lambda: matern52_gram_reference(x, y, float(ls)),
                              launches=BIG_PLAIN_LAUNCHES, runs=BIG_PLAIN_RUNS)
     else:
         # past 2**31 elements the plain version's temporaries would not fit
@@ -695,7 +776,7 @@ def predict_batch_phase(lib, x, y, ls, launches, dtype_label="float32"):
         else:
             step = max(1, 2**29 // n)
             blocks = [(x, y[i:i + step]) for i in range(0, m, step)]
-        plain_ms = device_ms(lambda: [matern52_gram_reference(a, b, ls) for a, b in blocks],
+        plain_ms = device_ms(lambda: [matern52_gram_reference(a, b, float(ls)) for a, b in blocks],
                              launches=1, runs=BIG_PLAIN_RUNS)
     bound_ms, bound_by = matern52_bound_ms(n, m, d, dtype_label)
     log(f"[predict batch] {n}x{m}x{d} {dtype_label}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
@@ -703,7 +784,8 @@ def predict_batch_phase(lib, x, y, ls, launches, dtype_label="float32"):
         f"{n * m * ITEMSIZE[dtype_label] / 1e9!r} GB written; max_abs_err on 4000 "
         f"{'rows' if n >= m else 'columns'} {err!r}; against float64: kernel {kernel_f64!r}, "
         f"plain version {plain_f64!r}")
-    return err, {"shape": f"{n}x{m}x{d}", "dtype": dtype_label, "launches": launches, "ms": ms,
+    return err, {"shape": f"{n}x{m}x{d}", "dtype": dtype_label, "ls": ls_source(ls),
+                 "launches": launches, "ms": ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                  "share": bound_ms / ms}
 
@@ -2351,6 +2433,168 @@ def wrapper_host_us(calls=1000, turns=4):
     return host_us
 
 
+FUSED_FIELDS = {
+    "density": ("nn_distances", "d", "mu", "ls", "landmarks", "n_landmarks", "Lp", "L",
+                "initial_value"),
+    "nystroem": ("nn_distances", "d", "mu", "ls", "landmarks", "n_landmarks", "L",
+                 "initial_value"),
+    "function": ("nn_distances", "ls", "landmarks"),
+    "dimensionality": ("distances", "nn_distances", "d", "mu_dens", "ls", "landmarks",
+                       "n_landmarks", "Lp", "L", "initial_value"),
+    "time": ("nn_distances", "d", "mu", "ls", "landmarks", "n_landmarks", "Lp", "L",
+             "initial_value"),
+}
+
+
+def same_bits(a, b):
+    """Two attributes equal bit for bit (tensors: dtype, shape, bits)."""
+    import torch
+
+    if not isinstance(a, torch.Tensor):
+        return a == b
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype)
+    return bool(torch.equal(a.view(bits), b.view(bits)) if bits else torch.equal(a, b))
+
+
+def fused_prepare(fused, make, args, enabled, count_syncs=False):
+    """One prepare_inference of ``make()`` on ``args`` with the fused
+    prepare on or off: (the estimator, synced seconds, and with
+    ``count_syncs`` the synchronizing CUDA calls that
+    torch.cuda.set_sync_debug_mode flagged in it, in all and up to and
+    including the fused prepare's one host read)."""
+    import warnings
+
+    import torch
+
+    old = fused.ENABLED
+    fused.ENABLED = enabled
+    read, marks = fused._read_host, []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if count_syncs:
+                fused._read_host = lambda packed: marks.append(len(caught)) or read(packed)
+                torch.cuda.set_sync_debug_mode("warn")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est = make()
+            est.prepare_inference(*args)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        fused.ENABLED, fused._read_host = old, read
+    if not count_syncs:
+        return est, seconds
+    return est, seconds, {"all": len(syncs), "to_the_read": marks[0] + 1 if marks else None}
+
+
+def stage_seconds(fused, make, args, eager):
+    """The fused prepare's stage calls of one prepare, each synced and
+    timed: replayed graphs, or (``eager``) the stage functions run eagerly
+    without them.  Returns {slot: seconds}."""
+    import torch
+
+    run, rows = fused._run, {}
+
+    def timed(slot, key, fn, inputs, seeds=(), capture=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if eager:
+            out = fn(*inputs, *fused._generators(inputs[0].device, seeds))
+        else:
+            out = run(slot, key, fn, inputs, seeds, capture)
+        torch.cuda.synchronize()
+        rows[slot] = time.perf_counter() - t0
+        return out
+
+    fused._run = timed
+    try:
+        fused_prepare(fused, make, args, True)
+    finally:
+        fused._run = run
+    return rows
+
+
+def graph_pool_bytes(fused):
+    """The bytes the caching allocator holds in each cached stage graph's
+    private memory pool: {slot: bytes}."""
+    import torch
+
+    by_pool = {}
+    if not fused._GRAPHS:
+        return {}
+    for segment in torch.cuda.memory_snapshot():
+        pool = tuple(segment.get("segment_pool_id", ()))
+        by_pool[pool] = by_pool.get(pool, 0) + segment["total_size"]
+    return {slot: by_pool.get(tuple(g.graph.pool()), 0) for slot, g in fused._GRAPHS.items()}
+
+
+def fused_path(mt, x_np, Y):
+    """[fused]: each family's default prepare through the fused prepare's
+    CUDA graphs: the density at the bench shape, the function estimator on
+    its 2,000 gene trends, the dimensionality model on the bench cells, the
+    time model on the 98,192-cell course (ls_time=TIME_LS) and the sparse
+    Nyström BASELINE row.  For each: the lazy prepare (ENABLED off), the
+    first fused prepare (eager run, capture, one replay held to the eager
+    run), then a replayed one, which must equal the lazy prepare bit for
+    bit, with its synchronizing calls counted; the graphs' nodes and
+    capture seconds, pool bytes; after the density's, its stage seconds,
+    replayed and eager (phase 10 times the warm fits with the fused
+    prepare on and off).  The Nyström type goes first: it shares the
+    density's stage-1 slot, and the later paths replay the density's
+    graphs."""
+    import numpy as np
+
+    from mellon_tpu_torch.models import fused
+
+    x_time, times, _ = load_time_course()
+    x_ny = np.asarray(np.load(NYSTROEM_DATA)["x"], dtype=np.float32)
+    families = {
+        "nystroem": (lambda: mt.DensityEstimator(device=DEVICE, **NYSTROEM), (x_ny,)),
+        "density": (lambda: mt.DensityEstimator(device=DEVICE), (x_np,)),
+        "function": (lambda: mt.FunctionEstimator(sigma=FUNCTION_SIGMA, device=DEVICE), (x_np,)),
+        "dimensionality": (lambda: mt.DimensionalityEstimator(device=DEVICE), (x_np,)),
+        "time": (lambda: mt.TimeSensitiveDensityEstimator(ls_time=TIME_LS, device=DEVICE),
+                 (x_time, times)),
+    }
+    stats, failed = {}, []
+    for family, (make, args) in families.items():
+        lazy, lazy_s = fused_prepare(fused, make, args, False)
+        first, first_s = fused_prepare(fused, make, args, True)
+        replayed, replay_s, syncs = fused_prepare(fused, make, args, True, count_syncs=True)
+        differ = [name for name in FUSED_FIELDS[family]
+                  if not (same_bits(getattr(first, name), getattr(lazy, name))
+                          and same_bits(getattr(replayed, name), getattr(lazy, name)))]
+        if repr(replayed.cov_func) != repr(lazy.cov_func):
+            differ.append("cov_func")
+        failed += [f"{family}.{name}" for name in differ]
+        # the Nyström type replays the density's stage 1 and no stage 2
+        graphs = [g for g in fused.graph_stats() if (
+            g["slot"] == "density" if family == "nystroem" else g["slot"].split()[0] == family)]
+        pools = graph_pool_bytes(fused)
+        for g in graphs:
+            g["pool_bytes"] = pools.get(g["slot"])
+        stats[family] = {
+            "lazy_s": lazy_s, "first_s": first_s, "replayed_s": replay_s,
+            "landmarks_kept": int(replayed.landmarks.shape[0]), "syncs": syncs,
+            "graphs": graphs, "bit_identical": not differ,
+        }
+        log(f"[fused] {family}: " + json.dumps(stats[family]))
+        del lazy, first, replayed
+        if family == "density":
+            stats["density_stage_s"] = {"replayed": stage_seconds(fused, make, args, eager=False),
+                                        "eager": stage_seconds(fused, make, args, eager=True)}
+            log("[fused] density stage seconds: " + json.dumps(stats["density_stage_s"]))
+    if failed:
+        raise AssertionError(f"[fused] replayed prepares differ from the lazy ones: {failed}")
+    return stats
+
+
 def staged_fit(est, x, prepared_attributes):
     """A fit of ``est`` on x with the card synchronized between its stages
     (``prepared_attributes`` in order, then L-BFGS, the log density and
@@ -2446,8 +2690,9 @@ def main():
             f"the main path launched the matern52 kernel {fit_launches} times in the "
             f"fit and {launches} times in all"
         )
-    if len(calls) != launches:
-        raise AssertionError(f"{len(calls)} kernel calls were made but {launches} launched")
+    if len(calls) != launches or host_calls(calls):
+        raise AssertionError(f"{len(calls)} kernel calls were made, {len(host_calls(calls))} "
+                             f"of them on the host, but {launches} launched")
     n_kept = int(est.landmarks.shape[0])
     corr, rmse = certificate(ld, ld_ref)
     log(f"[fit] first fit {first_fit_s:.3f} s; kernel launches in the fit: {fit_launches}")
@@ -2474,6 +2719,10 @@ def main():
         log(f"[{label}] path seconds {seconds!r}")
         return result
 
+    # 30. the fused prepare's graphs, family by family, against the lazy
+    # prepare, and the warm fits with and without them
+    Y = gene_trends(x_np, FUNCTION_OUTPUTS)
+    run("fused", lambda: fused_path(mt, x_np, Y))
     # 5-8. the paths of the predictor's uncertainty, ADVI, derivatives and
     # JSON, each with its own launch count
     run("uncertainty", lambda: uncertainty_path(mt, x_np, x_new, xq, ld_ref))
@@ -2487,7 +2736,6 @@ def main():
     run("functional", lambda: functional_path(mt, est, x_np, ld))
     # 14-17. the FunctionEstimator, the DimensionalityEstimator and the
     # full GP type
-    Y = gene_trends(x_np, FUNCTION_OUTPUTS)
     run("function", lambda: function_path(mt, x_np, x_new, Y))
     run("function full", lambda: function_full_path(mt, x_np, x_new, Y))
     dim = run("dimensionality", lambda: dimensionality_path(mt, x_np, x_new))
@@ -2514,8 +2762,9 @@ def main():
     run("tutorials", tutorials_path)
     stop_recording()
     launches = sum(path_launches.values())
-    if len(calls) != launches:
-        raise AssertionError(f"{len(calls)} kernel calls were made but {launches} launched")
+    if len(calls) != launches or host_calls(calls):
+        raise AssertionError(f"{len(calls)} kernel calls were made, {len(host_calls(calls))} "
+                             f"of them on the host, but {launches} launched")
     # 27. the ranks count their own launches; their calls are timed and
     # checked again below on operands of the same shapes
     (path_launches["parallel"], rank_calls, _), seconds = synced_seconds(
@@ -2548,17 +2797,34 @@ def main():
     # 9. the wrapper's host time
     host_us = wrapper_host_us()
 
-    # 10. timing
-    fit_times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = mt.DensityEstimator(device=DEVICE).fit_predict(x_np)
-        torch.cuda.synchronize()
-        fit_times.append(time.perf_counter() - t0)
+    # 10. timing: warm fits with the fused prepare on and off, in turns
+    from mellon_tpu_torch.models import fused
+
+    # every fit's log density equals the others bit for bit: the fused
+    # prepare's optimistic factor (in fit) is the lazy chain's
+    fit_times, fit_outs = {True: [], False: []}, []
+    for enabled in (True, False) * 3:
+        fused.ENABLED = enabled
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mt.DensityEstimator(device=DEVICE).fit_predict(x_np)
+            torch.cuda.synchronize()
+        finally:
+            fused.ENABLED = True
+        fit_times[enabled].append(time.perf_counter() - t0)
         if not bool(torch.isfinite(out).all()):
             raise AssertionError("a warm fit's log density is not finite")
-    log(f"[fit] warm fit seconds {fit_times!r}; median {statistics.median(fit_times)!r}")
+        fit_outs.append(out)
+    differ = [i for i, out in enumerate(fit_outs) if not same_bits(out, fit_outs[1])]
+    log(f"[fit] warm fits' log densities, fused prepare on and off in turns, bit for bit "
+        f"equal: {not differ}")
+    if differ:
+        raise AssertionError(f"warm fits {differ} differ from the first fit with the fused "
+                             "prepare off")
+    log(f"[fit] warm fit seconds {fit_times[True]!r}; median {statistics.median(fit_times[True])!r}")
+    log(f"[fit] warm fit seconds with the fused prepare off {fit_times[False]!r}; "
+        f"median {statistics.median(fit_times[False])!r}")
     from mellon_tpu_torch.models.density import PREPARED_ATTRIBUTES
 
     stages = staged_fit(mt.DensityEstimator(device=DEVICE), x_np, PREPARED_ATTRIBUTES)

@@ -62,6 +62,7 @@ from ..ops.linalg import (
     _jittered_cholesky,
     _nystroem_select_and_project,
     _standard_low_rank,
+    log_escalation,
     safe_cholesky,
 )
 from ..parameters import (
@@ -485,6 +486,15 @@ class BaseEstimator:
         SMC or, after L-BFGS or adam, from the diagonal Laplace
         approximation."""
         optimizer = self.optimizer
+        fallback = getattr(self, "_fused_lp_fallback", None)
+        if fallback is not None and optimizer != "L-BFGS-B":
+            # the fused prepare's optimistic factor is checked through the
+            # loss on the L-BFGS path only; here it is checked now
+            self._fused_lp_fallback = None
+            if not bool(torch.isfinite(self.initial_value).all()):
+                self._rebuild_optimistic_factor(fallback)
+            else:
+                log_escalation(self.jitter, int(fallback[2]))
         logger.info("Running inference using %s.", optimizer)
         self.pre_transformation_std = None
         shape = self.initial_value.shape
@@ -523,6 +533,18 @@ class BaseEstimator:
                 make_value_and_grad=getattr(self, "_make_value_and_grad", None),
                 loss_args=getattr(self, "_loss_args", ()),
             )
+            fallback = getattr(self, "_fused_lp_fallback", None)
+            self._fused_lp_fallback = None  # release K either way
+            if fallback is not None and not math.isfinite(results.loss):
+                # the fused prepare factored the pruned landmark kernel
+                # without reading its validity; a non-finite loss means no
+                # rung of its jitter escalation factored it
+                self._rebuild_optimistic_factor(fallback)
+                return self._run_inference()
+            if fallback is not None:
+                # the retries the factor took, read once the optimizer has
+                # run: the lazy chain's warnings for them
+                log_escalation(self.jitter, int(fallback[2]))
             self.pre_transformation = results.pre_transformation.reshape(shape)
             self.losses = [results.loss]
             self.opt_state = results
@@ -531,6 +553,19 @@ class BaseEstimator:
             self.pre_transformation_std = laplace_std_from_diagonal(
                 self._hessian_diagonal(self.pre_transformation.reshape(-1))
             ).reshape(shape)
+
+    def _rebuild_optimistic_factor(self, fallback):
+        """Factor the pruned landmark kernel again with jitter escalation
+        and its float64 rescue (``fallback``: the fused prepare's (K,
+        pivots, retries)) and recompute what depends on the factor."""
+        logger.warning(
+            "Optimistic factorization was invalid; rebuilding with jitter escalation."
+        )
+        K, piv, _ = fallback
+        self.Lp = safe_cholesky(K[piv][:, piv], jitter=self.jitter, max_tries=3)
+        for attribute in ("L", "initial_value", "transform", "loss_func"):
+            setattr(self, attribute, None)
+            self._prepare_attribute(attribute)
 
     def _sampler_generator(self):
         seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED

@@ -45,6 +45,7 @@ from ..parameters import (
 from ..utils.util import DEFAULT_JITTER, object_html
 from ..utils.validation import validate_array, validate_string
 from .base import DEFAULT_COV_FUNC, OPTIMIZERS, BaseEstimator
+from .fused import maybe_fused_nystroem_prepare, maybe_fused_sparse_prepare
 
 DEFAULT_D_METHOD = "embedding"
 
@@ -271,6 +272,11 @@ class DensityEstimator(BaseEstimator):
         for attribute in SIZE_ATTRIBUTES:
             self._prepare_attribute(attribute)
         self.validate_parameter()
+        # the default sparse configuration: the fused prepare sets the
+        # attributes through nn_distances..initial_value with one host read
+        # (the lazy chain below then finds them set); any customization
+        # falls through to the lazy chain
+        maybe_fused_sparse_prepare(self) or maybe_fused_nystroem_prepare(self)
         for attribute in PREPARED_ATTRIBUTES:
             self._prepare_attribute(attribute)
         return self.loss_func, self.initial_value
@@ -306,8 +312,14 @@ class DensityEstimator(BaseEstimator):
 
     def fit(self, x=None, build_predict=True):
         """End-to-end training."""
-        self.prepare_inference(x)
-        self.run_inference()
+        # run_inference follows the prepare here, so the fused prepare may
+        # leave the pruned factor's validity to the optimizer's first loss
+        self._in_fit = True
+        try:
+            self.prepare_inference(x)
+            self.run_inference()
+        finally:
+            self._in_fit = False
         self.process_inference(build_predict=build_predict)
         return self
 

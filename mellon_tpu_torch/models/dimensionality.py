@@ -34,6 +34,7 @@ from ..parameters import (
 from ..utils.util import DEFAULT_JITTER, object_html, object_str
 from ..utils.validation import validate_array, validate_float, validate_positive_int
 from .base import DEFAULT_COV_FUNC, BaseEstimator
+from .fused import maybe_fused_dimensionality_prepare
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -266,6 +267,9 @@ class DimensionalityEstimator(BaseEstimator):
         for attribute in ("n_landmarks", "rank", "gp_type"):
             self._prepare_attribute(attribute)
         self.validate_parameter()
+        # the default sparse configuration: the fused prepare (one host
+        # read); customizations take the lazy chain
+        maybe_fused_dimensionality_prepare(self)
         for attribute in PREPARED_ATTRIBUTES:
             self._prepare_attribute(attribute)
         return self.loss_func, self.initial_value
@@ -299,8 +303,13 @@ class DimensionalityEstimator(BaseEstimator):
         return self.local_dim_x, self.log_density_x
 
     def fit(self, x=None, build_predict=True):
-        self.prepare_inference(x)
-        self.run_inference()
+        # run_inference follows the prepare here (see DensityEstimator.fit)
+        self._in_fit = True
+        try:
+            self.prepare_inference(x)
+            self.run_inference()
+        finally:
+            self._in_fit = False
         self.process_inference(build_predict=build_predict)
         return self
 

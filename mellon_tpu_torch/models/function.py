@@ -29,6 +29,7 @@ from ..utils.validation import (
     validate_float_or_iterable_numerical,
 )
 from .base import DEFAULT_COV_FUNC, BaseEstimator
+from .fused import maybe_fused_function_prepare
 
 logger = logging.getLogger("mellon_tpu_torch")
 
@@ -148,6 +149,9 @@ class FunctionEstimator(BaseEstimator):
         self.set_x(x)
         self._prepare_attribute("n_landmarks")
         self._prepare_attribute("gp_type")
+        # the default sparse configuration: the fused prepare (one host
+        # read); customizations take the lazy chain
+        maybe_fused_function_prepare(self)
         if self.ls is None and self.cov_func is None:
             self._prepare_attribute("nn_distances")
         self._prepare_attribute("ls")

@@ -38,6 +38,7 @@ from ..utils.validation import (  # noqa: F401
 )
 from .base import DEFAULT_COV_FUNC, BaseEstimator  # noqa: F401
 from .density import DEFAULT_D_METHOD, SIZE_ATTRIBUTES, DensityEstimator
+from .fused import maybe_fused_time_prepare
 from .ls_time import compute_ls_time
 
 logger = logging.getLogger("mellon_tpu_torch")
@@ -280,6 +281,9 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
         for attribute in SIZE_ATTRIBUTES:
             self._prepare_attribute(attribute)
         self.validate_parameter()
+        # the default sparse configuration with a given ls_time: the fused
+        # prepare (one host read); customizations take the lazy chain
+        maybe_fused_time_prepare(self)
         for attribute in TIME_PREPARED_ATTRIBUTES:
             self._prepare_attribute(attribute)
         return self.loss_func, self.initial_value
@@ -287,8 +291,13 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
     def fit(self, x=None, times=None, build_predict=True):
         """End-to-end training on x (with ``times``, or time as its last
         column)."""
-        self.prepare_inference(x, times)
-        self.run_inference()
+        # run_inference follows the prepare here (see DensityEstimator.fit)
+        self._in_fit = True
+        try:
+            self.prepare_inference(x, times)
+            self.run_inference()
+        finally:
+            self._in_fit = False
         self.process_inference(build_predict=build_predict)
         return self
 

@@ -1,8 +1,12 @@
 """Seeded k-means for landmark selection (counterpart of ``mellon_tpu/ops/cluster.py``).
 
-k-means++ seeding draws on the device with ``torch.multinomial`` from a
-``torch.Generator``, so the k sequential draws make no host round trip;
-``init="random"`` takes k distinct rows from the same generator.  torch
+k-means++ seeding draws on the device from a ``torch.Generator``: each of
+the k sequential D²-weighted draws is ``torch.multinomial``'s one-sample
+draw written out (:func:`_weighted_draw`), which gives the same index for
+the same generator state without the validity checks that
+``torch.multinomial`` reads back on the host, so the draws make no host
+round trip and can be captured in a CUDA graph; ``init="random"`` takes k
+distinct rows from the same generator.  torch
 cannot reproduce JAX's threefry stream: the same seed gives other
 centroids than the JAX package, of comparable quality.  Hand-written
 assignment/update kernels are ROADMAP kernel K3.
@@ -32,6 +36,16 @@ def _assign(x, centroids, block_size):
     )
 
 
+def _weighted_draw(weights, generator):
+    """One index drawn with probability proportional to ``weights`` (1-d,
+    non-negative, not all 0), as a one-element tensor on their device:
+    argmax(w / q) with q ~ Exp(1), the form ``torch.multinomial(weights, 1,
+    generator=generator)`` computes (the same draws for the same generator
+    state), without its host-side checks of the weights."""
+    q = torch.empty_like(weights).exponential_(1, generator=generator)
+    return torch.argmax(weights / q, dim=-1, keepdim=True)
+
+
 def _kmeanspp_init(x, k, generator):
     """k-means++ seeding: k sequential D²-weighted draws, each one distance
     pass over x."""
@@ -41,7 +55,7 @@ def _kmeanspp_init(x, k, generator):
     centers[0] = first[0]
     d2 = torch.sum(torch.square(x - first), dim=1)
     for i in range(1, k):
-        idx = torch.multinomial(torch.clamp_min(d2, 1e-30), 1, generator=generator)
+        idx = _weighted_draw(torch.clamp_min(d2, 1e-30), generator)
         c = x[idx]
         centers[i] = c[0]
         d2 = torch.minimum(d2, torch.sum(torch.square(x - c), dim=1))

@@ -17,8 +17,16 @@ gradient (:func:`matern52_gram_backward`) is plain torch on either device.
 The kernel is compiled by ``nvcc`` from the package's sources at first use,
 into ``build/`` beside the package, keyed by a hash of the sources:
 nothing prebuilt is shipped.
+
+The length scale is a number, or a 0-d float64 tensor on the operands'
+device, which the kernel reads on the device when it runs: a launch
+captured in a CUDA graph (``models/fused.py``) then replays with the value
+the tensor holds at the replay.  A launch made while a graph is captured
+(:func:`captured_launches`) runs only when the graph replays, so it is
+counted by :func:`count_replay` at each replay, not when it is captured.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -40,8 +48,13 @@ NVCC_FLAGS = (
 
 _lib = None
 _lib_lock = threading.Lock()
-# the library's entry point for each dtype, filled when it loads
+# the library's entry points for each dtype, filled when it loads: the
+# length scale passed as a number, and read from a device tensor
 _entry = {}
+_entry_dev_ls = {}
+# the operands of the launches made while a CUDA graph is being captured
+# (None outside a capture); see captured_launches
+_captured = None
 
 
 def _nvcc():
@@ -91,8 +104,13 @@ def _library():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_double, ctypes.c_int, ctypes.c_void_p,
             ]
-            for fn in (lib.matern52_gram_f32, lib.matern52_gram_f64):
-                fn.argtypes = argtypes
+            # the _dev_ls entries take the length scale's device pointer
+            dev_ls_argtypes = argtypes[:7] + [ctypes.c_void_p] + argtypes[8:]
+            for fn, types in ((lib.matern52_gram_f32, argtypes),
+                              (lib.matern52_gram_f64, argtypes),
+                              (lib.matern52_gram_f32_dev_ls, dev_ls_argtypes),
+                              (lib.matern52_gram_f64_dev_ls, dev_ls_argtypes)):
+                fn.argtypes = types
                 fn.restype = ctypes.c_int
             lib.matern52_scratch_elems.argtypes = [ctypes.c_int] * 4
             lib.matern52_scratch_elems.restype = ctypes.c_longlong
@@ -100,6 +118,8 @@ def _library():
             lib.matern52_error_string.restype = ctypes.c_char_p
             _entry[torch.float32] = lib.matern52_gram_f32
             _entry[torch.float64] = lib.matern52_gram_f64
+            _entry_dev_ls[torch.float32] = lib.matern52_gram_f32_dev_ls
+            _entry_dev_ls[torch.float64] = lib.matern52_gram_f64_dev_ls
             _lib = lib
         return _lib
 
@@ -171,7 +191,14 @@ def _check_operands(x, y, ls):
         raise ValueError(
             f"matern52_gram operands lie on {x.device} and {y.device}."
         )
-    if not ls > 0:
+    if isinstance(ls, torch.Tensor):
+        # its value lies on the device: reading it here would sync
+        if ls.ndim != 0 or ls.dtype != torch.float64 or ls.device != x.device:
+            raise ValueError(
+                "matern52_gram takes a tensor length scale as a 0-d float64 tensor on "
+                f"the operands' device, got {tuple(ls.shape)} {ls.dtype} on {ls.device}."
+            )
+    elif not ls > 0:
         raise ValueError(f"matern52_gram needs a positive length scale, got {ls}.")
 
 
@@ -180,11 +207,14 @@ def matern52_gram(x, y, ls):
 
     CPU tensors take :func:`matern52_gram_reference`; CUDA tensors launch
     the hand-written kernel on the current stream (``matern52_gram.launches``
-    counts those launches) and raise if it cannot launch.  Where grad mode
-    is on and an operand requires grad, the call goes through
-    :class:`_Matern52Gram` and the result has a gradient; otherwise it adds
-    nothing to the call's host time.
+    counts those launches) and raise if it cannot launch.  ``ls`` is a
+    number or a 0-d float64 tensor on the operands' device (read there by
+    the kernel).  Where grad mode is on and an operand requires grad, the
+    call goes through :class:`_Matern52Gram` and the result has a
+    gradient; otherwise it adds nothing to the call's host time.
     """
+    if isinstance(ls, torch.Tensor):
+        return _matern52_gram(x, y, ls)
     ls = float(ls)
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
         return _Matern52Gram.apply(x, y, ls)
@@ -211,25 +241,51 @@ def _matern52_gram(x, y, ls):
     out = x.new_empty((n, m))
     if n == 0 or m == 0:
         return out
-    fn = _entry.get(x.dtype)
-    if fn is None:
+    if _lib is None:
         _library()
-        fn = _entry[x.dtype]
+    if isinstance(ls, torch.Tensor):
+        fn, ls_arg = _entry_dev_ls[x.dtype], ls.data_ptr()
+    else:
+        fn, ls_arg = _entry[x.dtype], ls
     scratch = x.new_empty(_lib.matern52_scratch_elems(n, m, d, x.element_size()))
     index = device.index
     # the current stream's cudaStream_t, without building a torch.cuda.Stream
     stream = torch._C._cuda_getCurrentRawStream(index)
     code = fn(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-        n, m, d, ls, index, stream,
+        n, m, d, ls_arg, index, stream,
     )
     if code != 0:
         raise RuntimeError(
             "matern52_gram kernel launch failed: "
             f"{_library().matern52_error_string(code).decode()} (cudaError {code})."
         )
-    matern52_gram.launches += 1
+    if _captured is not None:
+        _captured.append((x, y, ls))
+    else:
+        matern52_gram.launches += 1
     return out
 
 
+@contextlib.contextmanager
+def captured_launches():
+    """Inside this context the kernel's launches are those of a CUDA graph
+    being captured: they run when the graph replays.  Yields the list of
+    their operands ``(x, y, ls)``, filled as the capture goes; hand it to
+    :func:`count_replay` at each replay of the graph."""
+    global _captured
+    _captured = []
+    try:
+        yield _captured
+    finally:
+        _captured = None
+
+
+def count_replay(calls):
+    """Count the launches that one replay of a CUDA graph made: one for each
+    kernel call captured in it (``calls``, from :func:`captured_launches`)."""
+    matern52_gram.launches += len(calls)
+
+
+# the kernel's launches on CUDA tensors, eager and replayed
 matern52_gram.launches = 0

@@ -9,7 +9,13 @@ no TPU kernel computes them and no default path uses them.
 
 The JAX package's operand specs (``operand_spec``/``eval_operand_spec``)
 exist to key jitted XLA programs; PyTorch evaluates a composite eagerly, so
-they are not ported.
+they are not ported.  Each core keeps the JAX package's tag and parameter
+names (``_spec_tag``, ``_spec_params``), which say where the fused prepare
+(``models/fused.py``) applies.  A core's length scale may be a 0-d float64
+tensor on the operands' device, as inside a captured CUDA graph; the plain
+cores scale distances by ``c / ls`` so that a number and such a tensor give
+the same bits on either device (the card divides a tensor by a number as a
+product with its reciprocal, by a tensor as a quotient).
 """
 
 import json
@@ -47,6 +53,11 @@ _ZERO_DISTANCE = math.sqrt(1e-12)
 
 class Covariance(ABC):
     """Base covariance function: ``k(x, y)`` on (n, d) and (m, d) tensors."""
+
+    # the JAX package's operand-spec tag and parameter names of a core
+    # (None and () for a composite or a user-defined kernel)
+    _spec_tag = None
+    _spec_params = ()
 
     def __init__(self, active_dims=None):
         self.active_dims = active_dims
@@ -207,6 +218,8 @@ class CovariancePair(Covariance):
 class Add(CovariancePair):
     """Sum kernel."""
 
+    _spec_tag = "add"
+
     def __repr__(self):
         return f"({self.left!r} + {self.right!r})"
 
@@ -239,6 +252,8 @@ class Add(CovariancePair):
 
 class Mul(CovariancePair):
     """Product kernel with the product rule for its gradient."""
+
+    _spec_tag = "mul"
 
     def __repr__(self):
         return f"({self.left!r} * {self.right!r})"
@@ -278,6 +293,8 @@ class Pow(CovariancePair):
     """Power kernel (a number on the right) with the chain rule for its
     gradient."""
 
+    _spec_tag = "pow"
+
     def __repr__(self):
         return f"({self.left!r} ** {self.right!r})"
 
@@ -311,6 +328,7 @@ class _RadialKernel(Covariance):
     ∂k/∂y follows by the chain rule."""
 
     _r_scale = 1.0
+    _spec_params = ("ls",)
 
     def __init__(self, ls=1.0, active_dims=None):
         super().__init__(active_dims)
@@ -342,9 +360,10 @@ class Matern32(_RadialKernel):
     R"""Matern-3/2: :math:`(1 + \sqrt{3} r / l) e^{-\sqrt{3} r / l}`."""
 
     _r_scale = math.sqrt(3.0)
+    _spec_tag = "matern32"
 
     def _profile(self, dist):
-        r = self._r_scale * dist / self.ls
+        r = dist * (self._r_scale / self.ls)
         return (r + 1) * torch.exp(-r)
 
     def _dk_dr(self, r):
@@ -357,6 +376,7 @@ class Matern52(_RadialKernel):
     Evaluated by the hand-written CUDA tile on CUDA tensors."""
 
     _r_scale = math.sqrt(5.0)
+    _spec_tag = "matern52"
 
     def k(self, x, y):
         x = select_active_dims(x, self.active_dims)
@@ -374,8 +394,10 @@ class Matern52(_RadialKernel):
 class ExpQuad(_RadialKernel):
     R"""Squared-exponential: :math:`e^{-r^2 / (2 l^2)}`."""
 
+    _spec_tag = "expquad"
+
     def _profile(self, dist):
-        r = dist / self.ls
+        r = dist * (1 / self.ls)
         return torch.exp(-r * r / 2)
 
     def _dk_dr(self, r):
@@ -385,8 +407,10 @@ class ExpQuad(_RadialKernel):
 class Exponential(_RadialKernel):
     R"""Exponential: :math:`e^{-r / (2 l)}`."""
 
+    _spec_tag = "exponential"
+
     def _profile(self, dist):
-        return torch.exp(-(dist / self.ls) / 2)
+        return torch.exp(-(dist * (1 / self.ls)) / 2)
 
     def _dk_dr(self, r):
         return -torch.exp(-r / 2) / 2
@@ -394,6 +418,9 @@ class Exponential(_RadialKernel):
 
 class RatQuad(_RadialKernel):
     R"""Rational quadratic: :math:`(1 + r^2/(2\alpha l^2))^{-\alpha}`."""
+
+    _spec_tag = "ratquad"
+    _spec_params = ("ls", "alpha")
 
     def __init__(self, alpha=1.0, ls=1.0, active_dims=None):
         super().__init__(ls=ls, active_dims=active_dims)
@@ -410,6 +437,9 @@ class RatQuad(_RadialKernel):
 class Linear(Covariance):
     R"""Linear: :math:`x \cdot y / l`; ∂k(x, y)/∂y = x/l."""
 
+    _spec_tag = "linear"
+    _spec_params = ("ls",)
+
     def __init__(self, ls=1.0, active_dims=None):
         super().__init__(active_dims)
         self.ls = ls
@@ -417,7 +447,7 @@ class Linear(Covariance):
     def k(self, x, y):
         x = select_active_dims(x, self.active_dims)
         y = select_active_dims(y, self.active_dims)
-        return (x @ y.T) / self.ls
+        return (x @ y.T) * (1 / self.ls)
 
     def diag(self, x):
         x = select_active_dims(x, self.active_dims)

@@ -83,6 +83,45 @@ def _cholesky_f64_rescue(K, jitter):
     return None
 
 
+def _jitter_ladder(jitter, max_tries):
+    """The jitters :func:`safe_cholesky` retries with after ``jitter``:
+    ``max_tries`` x10 steps from max(jitter, DEFAULT_JITTER)."""
+    extra, ladder = max(jitter, DEFAULT_JITTER), []
+    for _ in range(max_tries):
+        extra = extra * 10
+        ladder.append(extra)
+    return ladder
+
+
+def _log_retry(extra):
+    logger.warning(f"Cholesky failed; retrying with jitter={extra:.2e}.")
+
+
+def escalated_cholesky(K, jitter, max_tries):
+    """:func:`safe_cholesky`'s jitter ladder without a host read (the form
+    a CUDA graph captures): K is factored at ``jitter`` and at each of the
+    ladder's ``max_tries`` jitters, and the first factor that succeeded is
+    selected on the device, the same bits safe_cholesky returns.  Returns
+    (L, tries): ``tries`` (a 0-d int64 tensor) counts the retries that
+    factor took, ``max_tries + 1`` (and L NaN) where none succeeded."""
+    L, ok = _jittered_cholesky(K, jitter)
+    tries = torch.where(ok, 0, max_tries + 1)
+    for i, extra in enumerate(_jitter_ladder(jitter, max_tries), 1):
+        L_i, ok_i = _jittered_cholesky(K, extra)
+        take = ok_i & ~ok
+        L = torch.where(take, L_i, L)
+        tries = torch.where(take, i, tries)
+        ok = ok | ok_i
+    return L, tries
+
+
+def log_escalation(jitter, tries):
+    """The warnings :func:`safe_cholesky` logs for a factor that took
+    ``tries`` retries (from :func:`escalated_cholesky`)."""
+    for extra in _jitter_ladder(jitter, tries):
+        _log_retry(extra)
+
+
 def safe_cholesky(K, jitter=DEFAULT_JITTER, max_tries=0):
     """Cholesky with optional geometric jitter escalation and a float64
     factorization as the final rescue.
@@ -94,12 +133,10 @@ def safe_cholesky(K, jitter=DEFAULT_JITTER, max_tries=0):
     """
     L, ok = _jittered_cholesky(K, jitter)
     ok = bool(ok)
-    tries = 0
-    extra = max(jitter, DEFAULT_JITTER)
-    while not ok and tries < max_tries:
-        extra = extra * 10
-        tries += 1
-        logger.warning(f"Cholesky failed; retrying with jitter={extra:.2e}.")
+    for extra in _jitter_ladder(jitter, max_tries):
+        if ok:
+            break
+        _log_retry(extra)
         L, ok = _jittered_cholesky(K, extra)
         ok = bool(ok)
     if not ok and max_tries > 0:
@@ -336,24 +373,26 @@ def _nystroem_select_and_project(H, rank):
     return H @ U
 
 
-def _pivoted_cholesky(K, rel_tol, max_rank):
-    """Greedy diagonally-pivoted partial Cholesky of a PSD matrix.
-
-    Returns (pivots (max_rank,), r, L (m, max_rank)) like the JAX package's
-    ``while_loop``: it stops after ``max_rank`` steps or once the largest
-    residual diagonal is at most ``rel_tol`` times the largest diagonal.
-    The stopping rule is read on the host once per :data:`PIVOT_CHUNK`
-    steps; inside a chunk a device-side flag masks the updates once it
-    fails, so every step after it leaves the state unchanged.  The pivot
-    stays a one-element tensor (``index_select``/``gather``): indexing with
-    a 0-d tensor would read it on the host at every step.
-    """
+def _pivoted_cholesky_masked(K, rel_tol, max_rank, active=None, stop_early=False):
+    """The steps of the greedy diagonally-pivoted partial Cholesky of a PSD
+    matrix, with the stopping rule (the largest residual diagonal at most
+    ``rel_tol`` times the largest diagonal) kept in a device-side flag that
+    masks every step after it fails, so such a step leaves the state
+    unchanged.  ``active`` (a 0-d bool tensor) is the flag's start: where
+    it is False no step runs.  With ``stop_early`` the flag is read on the
+    host once per :data:`PIVOT_CHUNK` steps and the loop ends with the
+    chunk in which it fell; without, all ``max_rank`` steps run and nothing
+    is read (the form a CUDA graph captures).  The pivot stays a
+    one-element tensor (``index_select``/``gather``): indexing with a 0-d
+    tensor would read it on the host at every step.  Returns (pivots
+    (max_rank,), the step count r as a 0-d tensor, L (m, max_rank))."""
     m = K.shape[0]
     d = torch.diagonal(K).clone()
     thresh = rel_tol * torch.max(d)
     L = torch.zeros((m, max_rank), dtype=K.dtype, device=K.device)
     piv = torch.zeros(max_rank, dtype=torch.int64, device=K.device)
-    active = torch.ones((), dtype=torch.bool, device=K.device)
+    if active is None:
+        active = torch.ones((), dtype=torch.bool, device=K.device)
     r = torch.zeros((), dtype=torch.int64, device=K.device)
     rows = torch.arange(m, device=K.device)
     k = 0
@@ -370,8 +409,21 @@ def _pivoted_cholesky(K, rel_tol, max_rank):
             piv[j : j + 1] = torch.where(active, p, 0)
             r = r + active.to(torch.int64)
         k += steps
-        if int(r) < k:
+        if stop_early and int(r) < k:
             break
+    return piv, r, L
+
+
+def _pivoted_cholesky(K, rel_tol, max_rank):
+    """Greedy diagonally-pivoted partial Cholesky of a PSD matrix.
+
+    Returns (pivots (max_rank,), r, L (m, max_rank)) like the JAX package's
+    ``while_loop``: it stops after ``max_rank`` steps or once the largest
+    residual diagonal is at most ``rel_tol`` times the largest diagonal.
+    The stopping rule is read on the host once per :data:`PIVOT_CHUNK`
+    steps (:func:`_pivoted_cholesky_masked`).
+    """
+    piv, r, L = _pivoted_cholesky_masked(K, rel_tol, max_rank, stop_early=True)
     return piv, int(r), L
 
 
@@ -418,6 +470,8 @@ def solve_psd_from_cholesky(L, b):
 
 def ridge_solve(L, target, alpha=1.0):
     """Minimize ||L z - target||² + alpha ||z||² through the normal
-    equations and a Cholesky of (LᵀL + alpha I)."""
+    equations and a Cholesky of (LᵀL + alpha I).  The factorization reads
+    no validity flag (a non-finite L gives a non-finite z, as in the JAX
+    package), so the solve can be captured in a CUDA graph."""
     G = add_diagonal(L.T @ L, alpha)
-    return solve_psd_from_cholesky(torch.linalg.cholesky(G), L.T @ target)
+    return solve_psd_from_cholesky(torch.linalg.cholesky_ex(G)[0], L.T @ target)

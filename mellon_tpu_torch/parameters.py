@@ -235,7 +235,10 @@ def compute_landmarks_rescale_time(
     ls = validate_positive_float(ls, "ls")
     ls_time = validate_positive_float(ls_time, "ls_time")
     x = validate_time_x(x, times).clone()
-    time_factor = ls / ls_time
+    # a 0-d float64 tensor on x's device, as the fused prepare computes it
+    # from its device values: the card divides a tensor by a number as a
+    # product with the reciprocal, by a tensor as a quotient
+    time_factor = torch.tensor(ls / ls_time, dtype=torch.float64, device=x.device)
     x[:, -1] *= time_factor
     landmarks = compute_landmarks(x, n_landmarks=n_landmarks, random_state=random_state)
     if landmarks is not None:

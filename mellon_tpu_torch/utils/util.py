@@ -65,8 +65,11 @@ def batched_vmap(func, x, *args, batch_size=100):
 
 
 def _active_index(active_dims):
+    # one feature as a one-column slice: a view, where a list index would
+    # copy the index to the device (a sync, which a CUDA graph cannot hold)
     if isinstance(active_dims, (int, np.integer)):
-        return [int(active_dims)]
+        i = int(active_dims)
+        return slice(i, (i + 1) or None)
     if isinstance(active_dims, np.ndarray):
         return torch.from_numpy(active_dims)
     return active_dims

@@ -82,7 +82,6 @@ from mellon_tpu_torch.inference.losses import (  # noqa: E402
     make_density_value_and_grad_batch,
 )
 from mellon_tpu_torch.ops import hopper_kernels as hk  # noqa: E402
-from mellon_tpu_torch.ops import kernels  # noqa: E402
 
 PREDICT_POINTS = chip_smoke.PREDICT_BATCH
 CELL_F32_REL = 1e-5
@@ -127,21 +126,15 @@ class Bars:
 def counted(label, fn):
     """chip_smoke.counted_path (the kernel's launch count set to 0 just
     before ``fn``, read just after, and > 0) with the (n, m, d, dtype, ls)
-    of each call the covariance module made: (fn's result, launches,
-    calls)."""
-    calls = []
-    launch = kernels.matern52_gram
-
-    def recording(x, y, ls):
-        calls.append((x.shape[0], y.shape[0], x.shape[1], chip_smoke.dtype_name(x.dtype),
-                      float(ls), x.detach(), y.detach()))
-        return launch(x, y, ls)
-
-    kernels.matern52_gram = recording
+    of each call the covariance module made, eagerly or replayed by a CUDA
+    graph (chip_smoke.record_operands): (fn's result, launches, calls)."""
+    recorded, stop = chip_smoke.record_operands()
     try:
         result, launches = chip_smoke.counted_path(hk, f"parallel rank {dist.get_rank()} {label}", fn)
     finally:
-        kernels.matern52_gram = launch
+        stop()
+    calls = [(x.shape[0], y.shape[0], x.shape[1], chip_smoke.dtype_name(x.dtype), float(ls), x, y)
+             for x, y, ls in recorded]
     return result, launches, calls
 
 

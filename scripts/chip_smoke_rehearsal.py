@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's paths from the FunctionEstimator on (14-26,
-28 and 29, all but [time matched]) on the CPU at a reduced size.
+28 and 29, all but [time matched]), and [fused] (30), on the CPU at a
+reduced size.
 
     python scripts/chip_smoke_rehearsal.py [outputs]
 
@@ -15,7 +16,9 @@ reported, not held), [ls_time] on a tenth of its cells per time point;
 [full capacity] with 1,000 default landmarks (float32 factors 500
 there), [atlas] on 20,000 cells with 500 landmarks and its subscale on
 the reference's first 5,000 cells, [ivf] on the atlas's cells and that
-subscale, [tutorials] whole, and [nuts], [dimensionality nuts] and
+subscale, [tutorials] whole, [fused] on the same cells and time points as
+[time] (the graphs exist only on the card: the stage functions run
+eagerly), and [nuts], [dimensionality nuts] and
 [checkpoint] at 4 chains, 30 warmup and 10 draws, with the certificates
 and sampler bars of these reduced runs reported, not held: the control
 flow, the launch counts and the float32-vs-float64 gaps that
@@ -56,6 +59,7 @@ def main():
     torch.set_num_threads(4)
     torch.cuda.synchronize = lambda *args, **kwargs: None
     torch.cuda.empty_cache = lambda: None
+    torch.cuda.set_sync_debug_mode = lambda mode: None
     mt.config.DEFAULT_DEVICE = "cpu"
     mt.parameters.DEFAULT_N_LANDMARKS = 500
     cs.DEVICE = "cpu"
@@ -89,6 +93,7 @@ def main():
     Y = cs.gene_trends(x_np, cs.FUNCTION_OUTPUTS)
     tx, times, tld = cs.load_time_course()
     keep = np.concatenate([np.flatnonzero(times == t)[:1000] for t in np.unique(times)])
+    cs.load_time_course = lambda: (tx[keep], times[keep], tld[keep])
 
     def full_capacity(r):
         # float32 factors 500 landmarks of these cells but not 1,000
@@ -114,6 +119,7 @@ def main():
         "dimensionality nuts": lambda r: cs.dimensionality_nuts_path(mt, x_np, r["dimensionality"][1]),
         "checkpoint": lambda r: cs.checkpoint_path(mt, r["nuts"][1], x_new),
         "tutorials": lambda r: cs.tutorials_path(),
+        "fused": lambda r: cs.fused_path(mt, x_np, Y),
     }
     return run_paths(paths)
 

@@ -698,6 +698,157 @@ def _gloo_hessian_rank(rank, store):
     torch.distributed.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# the fused prepare's CUDA graphs (mellon_tpu_torch/models/fused.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def fused_graphs(cuda):
+    from mellon_tpu_torch.models import fused
+
+    fused.clear_graphs()
+    yield fused
+    fused.clear_graphs()
+
+
+def _fused_prepare(x, enabled, dtype, **kwargs):
+    from mellon_tpu_torch.models import fused
+
+    old, fused.ENABLED = fused.ENABLED, enabled
+    try:
+        est = mellon_tpu_torch.DensityEstimator(device="cuda", dtype=dtype, **kwargs)
+        est.prepare_inference(x)
+    finally:
+        fused.ENABLED = old
+    return est
+
+
+def _assert_same_bits(a, b, fields):
+    for name in fields:
+        va, vb = getattr(a, name), getattr(b, name)
+        if isinstance(va, torch.Tensor):
+            assert va.dtype == vb.dtype and va.shape == vb.shape, name
+            bits = {torch.float32: torch.int32, torch.float64: torch.int64}[va.dtype]
+            assert torch.equal(va.view(bits), vb.view(bits)), name
+        else:
+            assert va == vb, name
+
+
+FUSED_FIELDS = ("nn_distances", "d", "mu", "ls", "landmarks", "n_landmarks", "Lp", "L",
+                "initial_value")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("seeds", [(42, 7), (7, 42)])
+def test_fused_replays_match_the_lazy_prepare_bitwise(fused_graphs, dtype, seeds):
+    """The density prepare's stage graphs, captured at the first call
+    (which holds one replay to its eager run) and replayed, re-seeded, for
+    two seeds and the first again: every attribute equals the lazy chain's
+    bit for bit, on the first 3,000 bench cells with 1,200 landmarks (at
+    float32 the kernel is singular and the pivoted subset is taken, at
+    float64 it factors); each replay launches the graphs' K1 calls."""
+    x = np.asarray(np.load(ROOT / "benchdata" / "ld_ref_8627x20_f64.npz")["x"][:3000])
+    x = x.astype(np.float32 if dtype == torch.float32 else np.float64)
+    _fused_prepare(x, True, dtype, n_landmarks=1200, random_state=seeds[0])
+    assert {g["slot"] for g in fused_graphs.graph_stats()} >= {"density"}
+    for seed in (*seeds, seeds[0]):
+        before = matern52_gram.launches
+        stage1 = fused_graphs._GRAPHS["density"]
+        replays = stage1.replays
+        got = _fused_prepare(x, True, dtype, n_landmarks=1200, random_state=seed)
+        torch.cuda.synchronize()
+        assert fused_graphs._GRAPHS["density"] is stage1 and stage1.replays == replays + 1
+        assert matern52_gram.launches - before >= len(stage1.kernel_calls) == 1
+        want = _fused_prepare(x, False, dtype, n_landmarks=1200, random_state=seed)
+        _assert_same_bits(got, want, FUSED_FIELDS)
+    assert fused_graphs._GRAPHS["density"].replays == 4
+
+
+def test_fused_replay_after_a_reseed_repeats_its_draws(fused_graphs):
+    """The k-means generators are registered with the stage-1 graph and
+    seeded before each replay: seed 3, then 4, then 3 again give the first
+    landmarks twice and others in between."""
+    x = torch.randn(2000, 5, device="cuda", generator=torch.Generator(device="cuda").manual_seed(9))
+    runs = [_fused_prepare(x, True, torch.float32, n_landmarks=200, random_state=s).landmarks
+            for s in (3, 3, 4, 3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[3])
+    assert not torch.equal(runs[0], runs[2])
+
+
+def test_fused_capture_with_a_host_read_raises(fused_graphs):
+    """A stage that reads a device value on the host cannot be captured:
+    the first call raises (and caches nothing) instead of running eagerly."""
+    def stage(x):
+        return (x * float(x.sum()),)
+
+    with pytest.raises(RuntimeError):
+        fused_graphs._run("probe", "probe", stage, (torch.ones(8, device="cuda"),), capture=True)
+    assert "probe" not in fused_graphs._GRAPHS
+    assert torch.ones(4, device="cuda").sum().item() == 4.0
+
+
+def test_fused_fit_matches_the_lazy_fit_bitwise(fused_graphs):
+    """A whole float32 fit through the fused prepare (its pruned factor
+    taken optimistically, with the jitter escalation in stage 2) gives the
+    lazy fit's log density bit for bit, captured and then replayed."""
+    x = np.asarray(np.load(ROOT / "benchdata" / "ld_ref_8627x20_f64.npz")["x"][:3000], np.float32)
+    old = fused_graphs.ENABLED
+    try:
+        fits = []
+        for enabled in (False, True, True):
+            fused_graphs.ENABLED = enabled
+            est = mellon_tpu_torch.DensityEstimator(device="cuda", n_landmarks=1200)
+            fits.append(est.fit_predict(x))
+    finally:
+        fused_graphs.ENABLED = old
+    assert est.landmarks.shape[0] < 1200 and fused_graphs._GRAPHS["density prune factorize"].replays
+    bits = [f.view(torch.int32) for f in fits]
+    assert torch.equal(bits[0], bits[1]) and torch.equal(bits[0], bits[2])
+
+
+def test_fused_prepare_past_the_memory_share_runs_eagerly(fused_graphs, monkeypatch):
+    """Where an (n, k) factor passes GRAPH_MEMORY_SHARE of the card, the
+    prepare captures nothing, drops the graphs it had, and still sets the
+    lazy chain's attributes bit for bit."""
+    x = np.asarray(np.load(ROOT / "benchdata" / "ld_ref_8627x20_f64.npz")["x"][:3000], np.float32)
+    _fused_prepare(x, True, torch.float32, n_landmarks=1200)
+    assert "density" in fused_graphs._GRAPHS
+    total = torch.cuda.get_device_properties(0).total_memory
+    monkeypatch.setattr(fused_graphs, "GRAPH_MEMORY_SHARE", 3000 * 1200 * 4 / 2 / total)
+    got = _fused_prepare(x, True, torch.float32, n_landmarks=1200)
+    assert not fused_graphs._GRAPHS
+    want = _fused_prepare(x, False, torch.float32, n_landmarks=1200)
+    _assert_same_bits(got, want, FUSED_FIELDS)
+
+
+@pytest.mark.parametrize("n", [1, 100, 5000])
+def test_weighted_draw_equals_multinomial_on_card(cuda, n):
+    """k-means++'s written-out draw gives torch.multinomial's indices for
+    the same generator state, bit for bit, on the card."""
+    from mellon_tpu_torch.ops.cluster import _weighted_draw
+
+    for seed in range(3):
+        w = torch.rand(n, device=cuda, generator=torch.Generator(device=cuda).manual_seed(100 + seed)) ** 3
+        g1 = torch.Generator(device=cuda).manual_seed(seed)
+        g2 = torch.Generator(device=cuda).manual_seed(seed)
+        want = torch.cat([torch.multinomial(w, 1, generator=g1) for _ in range(20)])
+        got = torch.cat([_weighted_draw(w, g2) for _ in range(20)])
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_matern52_kernel_reads_a_device_length_scale(cuda, dtype):
+    """The kernel's entry that reads the length scale on the device gives
+    the bits of the one that takes it as a number."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(1000, 20, device=cuda, dtype=dtype, generator=g)
+    y = torch.randn(700, 20, device=cuda, dtype=dtype, generator=g)
+    ls = torch.tensor(3.1, dtype=torch.float64, device=cuda)
+    assert torch.equal(matern52_gram(x, y, ls), matern52_gram(x, y, 3.1))
+    assert torch.equal(matern52_gram(x, x, ls), matern52_gram(x, x, 3.1))
+
+
 if __name__ == "__main__":
     {"two_cards": _two_card_rank, "gloo_hessian": _gloo_hessian_rank}[sys.argv[1]](
         int(sys.argv[2]), sys.argv[3])

@@ -49,7 +49,6 @@ def test_exports_cover_the_jax_package(subpackage):
 # ROADMAP's "Do not port": the modules and names of mellon_tpu the port does
 # not take, each with its reason, and the parameters it renames
 DO_NOT_PORT_MODULES = {
-    "models.fused": "the fused TPU prepare; the port's eager prepare replaces it",
     "ops.extended_precision": "double-single float64 emulation; the card has native float64",
     "ops.pallas_kernels": "the Pallas tile; its CUDA counterpart is ops.hopper_kernels (K1)",
 }
