@@ -6,7 +6,7 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3, 5-8, 11-26 and 28-30) runs with the kernel's launch count set to 0
+Each path (3, 5-8, 11-26 and 28-31) runs with the kernel's launch count set to 0
 just before it and read just after, and fails if the kernel was not
 launched; the operands of every kernel call the covariance module makes on
 these paths are kept for phase 4.  Path 27's ranks are processes of their
@@ -223,7 +223,22 @@ any rank launched the kernel no time.
    (fused_path): every attribute of a replayed prepare equal to the lazy
    chain's bit for bit; its seconds, its synchronizing calls, and the
    stage graphs' nodes, pool bytes and capture seconds; the density's
-   stage seconds replayed and eager.  The kernel's launches inside a
+   stage seconds replayed and eager;
+31. bf16 sampling (right after 24's atlas nuts): precision="bf16" on 3's
+   fit.  The card's bf16 density value and gradient at its MAP and three
+   perturbed points held to the same function in float64 on the card
+   (bf16_parity: >= 99% of the gradient entries bit for bit, each within
+   one bfloat16 ulp of the likelihood part plus twice the float32
+   formula's own error there, the value within its float32 bound);
+   sample_density_posterior(
+   precondition="hessian") in bf16 and in float32 at BF16_SAMPLING (trees
+   capped at depth 6) with ms per leaf, step size, leapfrogs per draw,
+   the share of trees at the cap, min-ESS, the share of latents whose
+   std differs beyond MC error and the function means' corr, no posterior
+   bar (the JAX package's own bf16 check failed); finite draws, the
+   warning logged, the bf16 draws' predictor at the 1,000 points finite;
+   the samplers' 8-chain potential at the atlas shape in float32 and in
+   bf16, device ms per call beside the bytes bound of reading L twice.  The kernel's launches inside a
    graph count at each replay, with the graph's buffers as operands.
 
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
@@ -460,6 +475,30 @@ TUTORIALS = ("basic", "gene_change_analysis", "time_series", "trajectory_trends"
 # chains for CHECKPOINT_DRAWS draws
 DIM_NUTS_OPTIONS = dict(NUTS_OPTIONS, max_tree_depth=7)
 CHECKPOINT_DRAWS = 10
+# [bf16 sampling] (right after [atlas nuts]).  Its function parity holds the
+# card's bf16 density value and gradient at the main fit's MAP and
+# BF16_POINTS - 1 points at BF16_PERTURB·N(0, I) from it (one batch) to
+# the same function in float64 on the card (bf16_parity), BF16_EQUAL_SHARE
+# of the gradient entries bit for bit (the CPU tests' bar against JAX).  Its sampler runs
+# sample_density_posterior(precondition="hessian") in bf16 and in float32
+# with one seed and BF16_SAMPLING, trees capped at depth 6: the JAX
+# package's bf16 trees ran to their cap (its round-5 log), so a cap of 10
+# could cost 1,023 leaves a draw.  A latent's std differs from the other
+# precision's beyond MC error where |Δstd| / se > BF16_MC_Z, se from each
+# run's ESS (scripts/bf16_agreement_direct.py's test); ms per leaf over
+# BF16_LEAF_TRANSITIONS transitions resumed from the last draws.  Then
+# the samplers' 8-chain potential at the atlas shape, timed over
+# BF16_ATLAS_CALLS calls in each precision
+BF16_POINTS = 4
+BF16_EQUAL_SHARE = 0.99
+BF16_PERTURB = 0.05
+BF16_SAMPLING = dict(num_chains=16, num_warmup=100, num_samples=100, max_tree_depth=6)
+BF16_SEED = 3
+BF16_MC_Z = 3.0
+BF16_LEAF_TRANSITIONS = 10
+BF16_ATLAS_CHAINS = 8
+BF16_ATLAS_CALLS = 10
+BF16_WARNING = "round-5 posterior-agreement"
 PARALLEL_WORKER = os.path.join(ROOT, "scripts", "chip_smoke_parallel.py")
 PARALLEL_TIMEOUT = 300
 
@@ -2238,6 +2277,210 @@ def atlas_nuts_path(mt, est, smi):
     return stats
 
 
+def bf16_parity(est, Z):
+    """The card's bf16 batched density value and gradient at the rows of
+    Z against the same function in float64 on the card: the bfloat16 L
+    and bf16(Z) upcast exactly, Lᵀ(1 − e) rounded to float32 and then to
+    bfloat16 as the JAX package rounds it.
+
+    Bars: at least BF16_EQUAL_SHARE of the gradient entries equal to that
+    reference's bits, and every entry within one bfloat16 ulp of its
+    likelihood part plus twice the float32 error of that part (and two
+    float32 ulps of the entry, its subtraction from z): rounding two
+    numbers |a − b| apart to bfloat16 leaves them at most |a − b| + one ulp
+    apart.  The float32 error is the plain float32 formula's distance from
+    float64 at that entry (L·bf16(z), e and Lᵀ(1 − e) in float32 torch
+    ops): any float32 evaluation, the JAX package's too, is about that far
+    from float64, by several ulps where Lᵀ(1 − e) cancels to a small
+    number.  The value is held
+    to the float32 bound u·((n + 3)·Σᵢ(|Fᵢ| + |Vdrᵢ| + eᵢ) + (k + 2)·Σᵢ|1 −
+    eᵢ|·(Σⱼ|Lᵢⱼ zⱼ| + |μ|) + (k + 2)·|z|²), u = 2⁻²⁴: the rounding of the
+    k-term products F, the n-term sum and the prior, for any summation
+    order.  Returns the gaps over those bars, the largest gradient gap in
+    ulps, the bit-equal share, the entries whose float32 error exceeds half
+    an ulp, and, for the function
+    without the roundings, its value gap and the share of its gradient
+    entries outside the bar."""
+    import math
+
+    import torch
+
+    from mellon_tpu_torch.inference.likelihoods import nearest_neighbors_terms
+    from mellon_tpu_torch.inference.losses import make_density_value_and_grad_batch
+    from mellon_tpu_torch.inference.optimizers import bf16_operands
+
+    ops = bf16_operands(est._loss_args)
+    L, nn, d, mu = ops
+    values, grads = make_density_value_and_grad_batch(*ops)(Z)
+    n, k = L.shape
+    L64, Z64 = L.double(), Z.double()
+    V, Vdr = (t[:, None] for t in nearest_neighbors_terms(nn, d))
+    u = 2.0**-24
+
+    def exponent(x):
+        return torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32).tiny)))
+
+    def reference(Zr):
+        F = L64 @ Zr.T + mu
+        E = torch.exp(F + V.double())
+        value = (0.5 * (Z64 * Z64).sum(1) + 0.5 * k * math.log(2 * math.pi)
+                 - (F + Vdr.double() - E).sum(0))
+        bound = u * ((n + 3) * (F.abs() + Vdr.double().abs() + E).sum(0)
+                     + (k + 2) * ((1 - E).abs() * (L64.abs() @ Zr.abs().T + abs(float(mu)))).sum(0)
+                     + (k + 2) * (Z64 * Z64).sum(1))
+        return value, (L64.T @ (1 - E)).T, bound
+
+    rounded = Z.to(torch.bfloat16)
+    value, exact, bound = reference(rounded.double())
+    likelihood = exact.float().to(torch.bfloat16).double()
+    grad = Z64 - likelihood
+    Lf = L.float()
+    plain = (Lf.T @ (1 - torch.exp(Lf @ rounded.float().T + mu + V))).T.double()
+    f32_error = (plain - exact).abs()
+    card = Z64 - grads.double()
+    ulp = torch.exp2(exponent(torch.maximum(likelihood.abs(), card.abs())) - 7)
+    grad_tol = ulp + 2 * f32_error + 2 * torch.exp2(exponent(grad) - 23)
+    plain_value, plain_likelihood, _ = reference(Z64)
+    return {
+        "value_gap_over_bound": float(((values.double() - value).abs() / bound).max()),
+        "value_bound": [float(b) for b in bound],
+        "grad_gap_over_tolerance": float(((grads.double() - grad).abs() / grad_tol).max()),
+        "grad_gap_over_ulp": float(((grads.double() - grad).abs() / ulp).max()),
+        "grad_bit_equal_share": float((grads == grad.float()).double().mean()),
+        "entries_with_f32_error_over_half_ulp": int((2 * f32_error > ulp).sum()),
+        "unrounded_value_gap_over_bound": float(((plain_value - value).abs() / bound).max()),
+        "unrounded_grad_outside_share": float(
+            ((((Z64 - plain_likelihood) - grad).abs() / grad_tol) > 1).double().mean()),
+    }
+
+
+def bf16_sampler(est, precision):
+    """sample_density_posterior(precondition="hessian") at BF16_SAMPLING
+    in ``precision`` (None: float32) without function samples: the result,
+    its ESS and its figures, ms per leaf from BF16_LEAF_TRANSITIONS
+    transitions resumed from the last draws on the whitened potential."""
+    import torch
+
+    from mellon_tpu_torch.inference import mcmc
+    from mellon_tpu_torch.inference.diagnostics import effective_sample_size
+    from mellon_tpu_torch.inference.losses import density_hessian
+    from mellon_tpu_torch.inference.optimizers import bf16_operands
+
+    (res, _), seconds = synced_seconds(lambda: mcmc.sample_density_posterior(
+        est, precision=precision, precondition="hessian", function_samples=False,
+        seed=BF16_SEED, **BF16_SAMPLING))
+    ops = bf16_operands(est._loss_args) if precision == "bf16" else est._loss_args
+    z0 = est.pre_transformation
+    value_and_grad, _ = mcmc.zero_centered_density_potential(z0, *ops)
+    hessian = lambda z: density_hessian(z, *ops)  # noqa: E731
+    z_map, _, _ = mcmc.newton_polish_value_and_grad(value_and_grad, hessian, z0)
+    R = mcmc.factor_hessian(hessian(z_map))
+    potential = counted_calls(mcmc.precondition_value_and_grad(
+        value_and_grad, mcmc.precondition_transform(R), z_map))
+    gen = torch.Generator(device=DEVICE).manual_seed(BF16_SEED)
+    cap = BF16_SAMPLING["max_tree_depth"]
+    _, leaf_s = synced_seconds(lambda: mcmc.resume_mcmc(
+        potential, (res.samples[:, -1] - z_map) @ R, gen, res.step_size, res.inv_mass_diag,
+        num_samples=BF16_LEAF_TRANSITIONS, max_tree_depth=cap))
+    ess = effective_sample_size(res.samples)
+    stats = {
+        "seconds": seconds, "ms_per_leaf": 1e3 * leaf_s / potential.calls,
+        "step_size": float(res.step_size), "mean_accept": float(res.accept_prob.mean()),
+        "divergences": int(res.diverging.sum()),
+        "leapfrogs_per_draw": float(res.num_leapfrog.double().mean()),
+        # a tree that began its cap's doubling took at least 2**(cap - 1) leapfrogs
+        "share_of_trees_at_cap": float((res.num_leapfrog >= 2 ** (cap - 1)).double().mean()),
+        "ess_min": float(ess.min()),
+    }
+    return res, ess, stats
+
+
+def bf16_atlas(est):
+    """The samplers' zero-centred potential of the atlas estimator at
+    BF16_ATLAS_CHAINS rows near its MAP, in float32 and in bf16: device
+    ms per call over BF16_ATLAS_CALLS calls (median of 3 runs) beside the
+    bytes bound of reading L twice."""
+    import torch
+
+    from mellon_tpu_torch.inference import mcmc
+    from mellon_tpu_torch.inference.optimizers import bf16_operands
+
+    z0 = est.pre_transformation
+    g = torch.Generator(device=DEVICE).manual_seed(BF16_SEED)
+    Z = z0 + BF16_PERTURB * torch.randn(BF16_ATLAS_CHAINS, z0.shape[0], device=DEVICE,
+                                        dtype=z0.dtype, generator=g)
+    out = {}
+    for label, ops in (("float32", est._loss_args), ("bf16", bf16_operands(est._loss_args))):
+        value_and_grad, _ = mcmc.zero_centered_density_potential(z0, *ops)
+        values, grads = value_and_grad(Z)
+        ms = device_ms(lambda: value_and_grad(Z), launches=BF16_ATLAS_CALLS, runs=3)
+        L = ops[0]
+        bound = 1e3 * 2 * L.numel() * L.element_size() / MEMORY_BYTES_PER_S
+        out[label] = {"L": [list(L.shape), str(L.dtype)], "ms_per_call": ms,
+                      "bytes_bound_ms": bound, "share": bound / ms,
+                      "finite": finite(values, grads)}
+        del ops, L, value_and_grad
+    return out
+
+
+def bf16_path(mt, est, est_atlas, x_new, smi):
+    """[bf16 sampling]: precision="bf16" on the main path's fit, its
+    function parity, both samplers and the draws' predictor at the 1,000
+    points; then the atlas potential's times (bf16_atlas)."""
+    import numpy as np
+    import torch
+
+    z0 = est.pre_transformation
+    g = torch.Generator(device=DEVICE).manual_seed(BF16_SEED)
+    Z = torch.cat([z0[None], z0 + BF16_PERTURB * torch.randn(
+        BF16_POINTS - 1, z0.shape[0], device=DEVICE, dtype=z0.dtype, generator=g)])
+    parity = bf16_parity(est, Z)
+    log(f"[bf16 sampling] function parity at {list(est.L.shape)}, {BF16_POINTS} points: "
+        + json.dumps(parity))
+    counter = MessageCount(BF16_WARNING)
+    logger = logging.getLogger("mellon_tpu_torch")
+    logger.addHandler(counter)
+    try:
+        res16, ess16, stats16 = bf16_sampler(est, "bf16")
+    finally:
+        logger.removeHandler(counter)
+    res32, ess32, stats32 = bf16_sampler(est, None)
+    k = res16.samples.shape[-1]
+    flat16, flat32 = (r.samples.reshape(-1, k) for r in (res16, res32))
+    s16, s32 = (f.std(dim=0, correction=0).double().cpu().numpy() for f in (flat16, flat32))
+    se = np.sqrt(s16**2 / (2 * (ess16 - 1)) + s32**2 / (2 * (ess32 - 1)))
+    ratio = s16 / s32
+    corr = log_density_corr(est.transform(flat16.mean(dim=0)), est.transform(flat32.mean(dim=0)))
+    pred = posterior_predictor(est, flat16)
+    at_new, u = pred(x_new), pred.uncertainty(x_new)
+    stats = {
+        "settings": BF16_SAMPLING, "seed": BF16_SEED, "bf16": stats16, "float32": stats32,
+        "std_outside_mc_error_share": float(np.mean(np.abs(s16 - s32) / se > BF16_MC_Z)),
+        "std_ratio_bf16_over_f32": [float(ratio.min()), float(np.median(ratio)),
+                                    float(ratio.max())],
+        "function_mean_corr": corr, "warnings_logged": counter.counts[BF16_WARNING],
+    }
+    log(f"[bf16 sampling] card {smi}; samplers " + json.dumps(stats))
+    log(f"[bf16 sampling] trees capped at depth {BF16_SAMPLING['max_tree_depth']}: the JAX "
+        f"package's bf16 trees ran to their cap; no posterior bar, since the JAX package's own "
+        f"bf16 agreement check failed (benchdata/logs_r5/bf16_agreement_direct_r5.log)")
+    atlas = bf16_atlas(est_atlas)
+    log(f"[bf16 sampling] card {smi}; atlas potential, {BF16_ATLAS_CHAINS} chains: "
+        + json.dumps(atlas))
+    log(f"[bf16 sampling] bars: >= {BF16_EQUAL_SHARE} of the gradient entries bit-equal to the "
+        "float64 reference's rounding, each within one bfloat16 ulp of the likelihood part plus "
+        "twice the float32 formula's own error there, the value within its float32 bound; "
+        "finite draws; the warning logged; the bf16 draws' predictor at the 1,000 points "
+        "finite; the atlas potentials finite")
+    ok = (parity["grad_gap_over_tolerance"] <= 1 and parity["value_gap_over_bound"] <= 1
+          and parity["grad_bit_equal_share"] >= BF16_EQUAL_SHARE
+          and finite(res16.samples, res32.samples, at_new, u) and counter.counts[BF16_WARNING] >= 1
+          and all(a["finite"] for a in atlas.values()))
+    if not ok:
+        raise AssertionError(f"bf16 sampling failed its bars: {parity} {stats} {atlas}")
+    return {"parity": parity, "samplers": stats, "atlas": atlas}
+
+
 def dimensionality_nuts_path(mt, x_np, est_map):
     """DimensionalityEstimator(optimizer="nuts") at [nuts]'s budget: split-R-hat,
     the draws' shape (chains, draws, 2, k), finite local dimensions; their
@@ -2755,6 +2998,8 @@ def main():
     run("ivf", lambda: ivf_path(mt, atlas[2], atlas[0]["prepare_seconds"]))
     torch.cuda.empty_cache()
     run("atlas nuts", lambda: atlas_nuts_path(mt, atlas[2], smi))
+    torch.cuda.empty_cache()
+    run("bf16 sampling", lambda: bf16_path(mt, est, atlas[2], x_new, smi))
     atlas = atlas[:2]
     torch.cuda.empty_cache()
     run("dimensionality nuts", lambda: dimensionality_nuts_path(mt, x_np, dim[1]))

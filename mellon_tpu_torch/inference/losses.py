@@ -27,10 +27,18 @@ gradient is z₀ − Lᵀ(dims·Σⱼ gq) and z₁ − Lᵀ Σⱼ g; these funct
 flattened to (2k,), as the optimizers do.
 
 An L stored in bfloat16 (the coarse phase of the two-phase
-``precision="bf16"`` MAP) is read in row blocks of :data:`BF16_CHUNK_ROWS`
-and upcast to the latents' dtype block by block, so the products are IEEE
-float32 of the bf16-rounded values, as the JAX package's promotion of
-bf16 × f32 gives them, without a float32 copy of L.
+``precision="bf16"`` MAP, and bf16 sampling) is read in row blocks of
+:data:`BF16_CHUNK_ROWS` and upcast to the latents' dtype block by block,
+without a float32 copy of L.  The density forms then compute the JAX
+package's bf16 function, ``jnp.dot(L, z.astype(L.dtype),
+preferred_element_type=f32)`` and its autodiff gradient: f = L·bf16(z) + μ
+(the bf16 × bf16 products are exact in float32 and summed there), and the
+likelihood part of the gradient rounded to bfloat16 before the prior's z
+is added, ∇ = z − bf16(Lᵀ(1 − e)), where the transpose of that cast rounds
+it; the likelihood part of the Hessian and its diagonal is rounded alike,
+as ``jax.hessian`` gives it.  The dimensionality forms and
+:func:`density_loglik` keep float32 latents: there the JAX package
+promotes bf16 × f32 to float32, which the upcast gives.
 """
 
 import logging
@@ -157,6 +165,30 @@ def _rmatmul(L, W):
     return out
 
 
+def _bf16_round(x):
+    """x rounded to bfloat16 (to nearest even, as XLA's convert) and back
+    to its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _density_latents(L, Z):
+    """The latents as the density forms multiply them by L: rounded to
+    bfloat16 with a bfloat16 L, as the JAX package's ``z.astype(L.dtype)``."""
+    return _bf16_round(Z) if L.dtype == torch.bfloat16 else Z
+
+
+def _density_matmul(L, Z):
+    """L @ Z in the density forms (:func:`_density_latents`)."""
+    return _matmul(L, _density_latents(L, Z))
+
+
+def _density_likelihood_part(L, part):
+    """The likelihood part of the density gradient or curvature, summed
+    over every rank: rounded to bfloat16 with a bfloat16 L, where the JAX
+    package's autodiff transposes the cast of z."""
+    return _bf16_round(part) if L.dtype == torch.bfloat16 else part
+
+
 def _reduce_likelihood(likelihood, grad_likelihood, group):
     """The likelihood and Lᵀ(1 − e) summed over the ranks of ``group``, in
     one ``all_reduce`` of the two stacked (as they are without one).  The
@@ -173,12 +205,12 @@ def _reduce_likelihood(likelihood, grad_likelihood, group):
 
 def _value_and_grad(z, L, V, Vdr, mu, loss_offset_per_term, group=None):
     k = z.shape[0]
-    f = _matmul(L, z) + mu
+    f = _density_matmul(L, z) + mu
     e = torch.exp(f + V)
     prior = -(1 / 2) * torch.sum(z * z) - (k / 2) * math.log(2 * math.pi)
     likelihood, grad_likelihood = _reduce_likelihood(
         torch.sum((f + Vdr) - e + loss_offset_per_term), _rmatmul(L, 1 - e), group)
-    return -(prior + likelihood), z - grad_likelihood
+    return -(prior + likelihood), z - _density_likelihood_part(L, grad_likelihood)
 
 
 def density_value_and_grad(z, L, nn_distances, d, mu, loss_offset_per_term=0.0):
@@ -211,7 +243,8 @@ def density_loss(z, L, nn_distances, d, mu, loss_offset_per_term=0.0, center=Non
 
 def density_loglik(z, L, nn_distances, d, mu):
     """The likelihood term of the density model at z alone (a 0-d tensor),
-    as ``mellon_tpu.inference.losses.density_loglik``."""
+    as ``mellon_tpu.inference.losses.density_loglik``, which promotes a
+    bfloat16 L against float32 z (it does not round z)."""
     V, Vdr = nearest_neighbors_terms(nn_distances, d)
     f = _matmul(L, z) + mu
     return torch.sum((f + Vdr) - torch.exp(f + V))
@@ -238,7 +271,7 @@ def make_density_loss_batch(L, nn_distances, d, mu):
 
     def loss_batch(Z):
         k = Z.shape[1]
-        F = L @ Z.T + mu
+        F = _density_matmul(L, Z.T) + mu
         prior = -(1 / 2) * torch.sum(Z * Z, dim=1) - (k / 2) * math.log(2 * math.pi)
         likelihood = torch.sum((F + Vdr[:, None]) - torch.exp(F + V[:, None]), dim=0)
         return -(prior + likelihood)
@@ -280,21 +313,23 @@ def make_density_value_and_grad_batch(L, nn_distances, d, mu, loss_offset_per_te
 
     def value_and_grad(Z):
         k = Z.shape[1]
-        F = L @ Z.T + mu
+        F = _density_matmul(L, Z.T) + mu
         E = torch.exp(F + V)
         prior = -(1 / 2) * torch.sum(Z * Z, dim=1) - (k / 2) * math.log(2 * math.pi)
         likelihood, grad_likelihood = _reduce_likelihood(
-            torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0), L.T @ (1 - E), group)
-        return -(prior + likelihood), Z - grad_likelihood.T
+            torch.sum((F + Vdr) - E + loss_offset_per_term, dim=0), _rmatmul(L, 1 - E), group)
+        return -(prior + likelihood), Z - _density_likelihood_part(L, grad_likelihood).T
 
     return BatchedPotential(value_and_grad, hessian, hessian_diagonal)
 
 
 def _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center):
     """The batched potential of :func:`make_density_value_and_grad_batch`
-    around ``center``."""
+    around ``center``.  With a bfloat16 L, ΔF = L·(bf16(Z) − bf16(c)): the
+    difference of two bfloat16 numbers is exact in float32, so this is
+    F − F_c of the rounded latents, the same function."""
     k = center.shape[0]
-    Fc = L @ center + mu
+    Fc = _density_matmul(L, center) + mu
     Ec = torch.exp(Fc + V)
     at_center = torch.sum((Fc + Vdr) - Ec + loss_offset_per_term, dtype=torch.float64)
     if group is not None:
@@ -306,11 +341,12 @@ def _centered_batch(L, V, Vdr, mu, loss_offset_per_term, group, center):
 
     def value_and_grad(Z):
         D = Z - center
-        dF = L @ D.T
+        dF = _matmul(L, (_density_latents(L, Z) - _density_latents(L, center)).T)
         likelihood, grad_likelihood = _reduce_likelihood(
-            torch.sum(dF - Ec * torch.expm1(dF), dim=0), L.T @ (1 - Ec * torch.exp(dF)), group)
+            torch.sum(dF - Ec * torch.expm1(dF), dim=0), _rmatmul(L, 1 - Ec * torch.exp(dF)), group)
         # ½|Z|² − ½|c|², without the cancellation
-        return constant + 0.5 * torch.sum(D * (2 * center + D), dim=1) - likelihood, Z - grad_likelihood.T
+        return (constant + 0.5 * torch.sum(D * (2 * center + D), dim=1) - likelihood,
+                Z - _density_likelihood_part(L, grad_likelihood).T)
 
     return value_and_grad
 
@@ -324,9 +360,9 @@ def make_density_loglik_batch(L, nn_distances, d, mu):
     V, Vdr = V[:, None], Vdr[:, None]
 
     def loglik(Z):
-        F = L @ Z.T + mu
+        F = _density_matmul(L, Z.T) + mu
         E = torch.exp(F + V)
-        return torch.sum((F + Vdr) - E, dim=0), (L.T @ (1 - E)).T
+        return torch.sum((F + Vdr) - E, dim=0), _density_likelihood_part(L, _rmatmul(L, 1 - E)).T
 
     return BatchedPotential(loglik)
 
@@ -371,15 +407,17 @@ HESSIAN_CHUNK_ROWS = 4096
 def _curvature(z, L, nn_distances, d, mu, group, out, term):
     """``out`` plus Σᵢ term(rows, eᵢ) over this rank's rows of L, in
     :data:`HESSIAN_CHUNK_ROWS` chunks with eᵢ = e^{Lᵢz+μ+Vᵢ}, summed over
-    the ranks of ``group`` in one ``all_reduce``."""
+    the ranks of ``group`` in one ``all_reduce`` (a bfloat16 L upcast by
+    chunk, at bf16(z), the sum rounded to bfloat16)."""
     V, _ = nearest_neighbors_terms(nn_distances, d)
+    zr = _density_latents(L, z)
     for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
-        rows = L[start : start + HESSIAN_CHUNK_ROWS]
-        e = torch.exp(rows @ z + mu + V[start : start + HESSIAN_CHUNK_ROWS])
+        rows = L[start : start + HESSIAN_CHUNK_ROWS].to(z.dtype)
+        e = torch.exp(rows @ zr + mu + V[start : start + HESSIAN_CHUNK_ROWS])
         out = out + term(rows, e)
     if group is not None:
         dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
-    return out
+    return _density_likelihood_part(L, out)
 
 
 def density_hessian_diagonal(z, L, nn_distances, d, mu, group=None):
@@ -515,7 +553,7 @@ def dimensionality_hessian_diagonal(z, L, distances, mu_dim, mu_dens):
     k = L.shape[1]
     diag = torch.ones_like(z)
     for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
-        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        rows = L[start : start + HESSIAN_CHUNK_ROWS].to(z.dtype)
         block = ldist[start : start + HESSIAN_CHUNK_ROWS]
         dims, pred, E = _dimensionality_terms(
             z[:, None], rows, block, counts, lgamma_counts, mu_dim, mu_dens
@@ -541,7 +579,7 @@ def dimensionality_hessian(z, L, distances, mu_dim, mu_dens):
     k = L.shape[1]
     H = torch.eye(2 * k, dtype=z.dtype, device=z.device)
     for start in range(0, L.shape[0], HESSIAN_CHUNK_ROWS):
-        rows = L[start : start + HESSIAN_CHUNK_ROWS]
+        rows = L[start : start + HESSIAN_CHUNK_ROWS].to(z.dtype)
         block = ldist[start : start + HESSIAN_CHUNK_ROWS]
         dims, _, E = _dimensionality_terms(
             z[:, None], rows, block, counts, lgamma_counts, mu_dim, mu_dens

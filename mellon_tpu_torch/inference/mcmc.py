@@ -45,6 +45,7 @@ import torch
 from ..ops.linalg import _cholesky_f64_rescue, _jittered_cholesky
 from ..parallel.mesh import broadcast_from_first_rank, check_sharding, sampling_block
 from .losses import BatchedPotential, density_hessian, density_loss
+from .optimizers import bf16_operands
 from .samplers import (
     ScalarPotential,
     as_batched,
@@ -62,10 +63,6 @@ from .samplers import (
 
 logger = logging.getLogger("mellon_tpu_torch")
 
-BF16_SAMPLING = (
-    "precision='bf16' sampling is not ported to mellon_tpu_torch: it failed the "
-    "JAX package's posterior-agreement check (ROADMAP Queue 3, \"bf16 sampling\")."
-)
 NEWTON_JITTER = 1e-6
 
 
@@ -316,17 +313,31 @@ def sample_density_posterior(
     with ``seed`` on the estimator's device, or from ``generator``.
     ``function_samples=False`` returns ``(result, None)``: at scale the
     (draws × n) matrix of f = L z + μ does not fit in memory.
+
+    ``precision="bf16"`` samples, polishes and whitens with every 2-d
+    float32 operand in bfloat16 (:func:`.optimizers.bf16_operands`), the
+    JAX package's bf16 function (:mod:`.losses`), and logs its warning:
+    the function samples come from the float32 L.
     """
     if estimator.loss_func is None:
         raise ValueError("Estimator not prepared. Call prepare_inference(x) first.")
+    args = (estimator.L, estimator.nn_distances, estimator.d, estimator.mu)
     if precision == "bf16":
-        raise NotImplementedError(BF16_SAMPLING)
-    if precision is not None:
+        logger.warning(
+            "precision='bf16' sampling failed the JAX package's round-5 posterior-agreement "
+            "check on its 100k-cell benchmark model, run on a TPU "
+            "(benchdata/logs_r5/bf16_agreement_direct_r5.log): the ~1e-3 perturbation of "
+            "the latent function acts as high-frequency potential noise, trees ran to the "
+            "depth cap and posterior stds were biased in 92% of dimensions.  This samples "
+            "the same bf16 function.  Use it only with your own agreement check; the "
+            "float32 default is certified."
+        )
+        args = bf16_operands(args)
+    elif precision is not None:
         raise ValueError(f"Unknown precision option: {precision}")
     z0 = estimator.initial_value
     if getattr(estimator, "pre_transformation", None) is not None:
         z0 = estimator.pre_transformation
-    args = (estimator.L, estimator.nn_distances, estimator.d, estimator.mu)
     value_and_grad, _ = zero_centered_density_potential(z0, *args)
     if generator is None:
         generator = torch.Generator(device=z0.device).manual_seed(int(seed))

@@ -216,11 +216,15 @@ def minimize_lbfgs_value_and_grad(
     ``max_iter`` steps, or when the line search finds no decrease; the
     result's ``converged`` says whether the first of these held.
 
-    ``precision="bf16"`` runs two phases, as the JAX package does:
-    max(3·max_iter // 4, 1) steps on ``make_value_and_grad(*loss_args)``
+    ``precision="bf16"`` runs two phases, as the JAX package does: at
+    most max(3·max_iter // 4, 1) steps on ``make_value_and_grad(*loss_args)``
     with every 2-d float32 operand stored as bfloat16 (:func:`bf16_operands`),
-    then max(max_iter − that, 1) steps on ``value_and_grad`` from the first
-    phase's optimum.  Without ``loss_args`` (and a ``make_value_and_grad``
+    then max(max_iter − the steps it took, 1) steps on ``value_and_grad``
+    from the first phase's optimum.  The JAX package's optax L-BFGS spends
+    its first phase's whole budget whatever its line search finds; this one
+    stops where the line search finds no decrease, which the bf16
+    function's rounding can bring about early, so the float32 phase takes
+    the steps it left.  Without ``loss_args`` (and a ``make_value_and_grad``
     to build the loss from them) it runs the single float32 phase.  The
     result's ``n_steps`` and ``n_evals`` cover both phases.
     """
@@ -231,11 +235,10 @@ def minimize_lbfgs_value_and_grad(
         )
         precision = None
     if precision == "bf16":
-        coarse_iter = max(int(max_iter) * 3 // 4, 1)
-        polish_iter = max(int(max_iter) - coarse_iter, 1)
         coarse = _lbfgs(make_value_and_grad(*bf16_operands(loss_args)), initial_value,
-                        coarse_iter, tol, memory_size)
-        fine = _lbfgs(value_and_grad, coarse.pre_transformation, polish_iter, tol, memory_size)
+                        max(int(max_iter) * 3 // 4, 1), tol, memory_size)
+        fine = _lbfgs(value_and_grad, coarse.pre_transformation,
+                      max(int(max_iter) - coarse.n_steps, 1), tol, memory_size)
         logger.info(
             "L-BFGS finished after %d bf16 + %d f32 steps with loss %.6g.",
             coarse.n_steps,

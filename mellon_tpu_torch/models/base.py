@@ -6,7 +6,8 @@ The optimizers and the Laplace step see the latents flattened: the
 estimator provides ``_value_and_grad``, ``_loss_batch`` and
 ``_hessian_diagonal`` on the flattened vector (and, for the two-phase
 ``precision="bf16"`` MAP, ``_make_value_and_grad`` with ``_loss_args``;
-for NUTS, ``_sampler_potential`` and ``_sampler_hessian``), and the
+for NUTS, ``_sampler_potential`` and ``_sampler_hessian``, built from the
+operands they are given, bfloat16 ones for bf16 sampling), and the
 fitted latents take the initial value's shape again ((k,) for the
 density, (2, k) for the dimensionality model).
 
@@ -34,9 +35,12 @@ from ..config import resolve_device_dtype
 from ..inference.advi import run_advi, run_advi_batch  # noqa: F401 (run_advi: the JAX module's name)
 from ..inference.conditionals import _landmarks_lp_with_pruning
 from ..inference.diagnostics import effective_sample_size
-from ..inference.laplace import compute_laplace_std, laplace_std_from_diagonal  # noqa: F401
+from ..inference.laplace import (  # noqa: F401 (compute_laplace_std: the JAX module's name)
+    compute_laplace_std,
+    hessian_diagonal_of,
+    laplace_std_from_diagonal,
+)
 from ..inference.mcmc import (
-    BF16_SAMPLING,
     factor_hessian,
     newton_polish_value_and_grad,
     precondition_transform,
@@ -48,6 +52,7 @@ from ..inference.optimizers import (  # noqa: F401 (minimize_adam, minimize_lbfg
     DEFAULT_INIT_LEARN_RATE,
     DEFAULT_N_ITER,
     DEFAULT_OPTIMIZER,
+    bf16_operands,
     minimize_adam,
     minimize_adam_value_and_grad,
     minimize_lbfgs_value_and_grad,
@@ -226,8 +231,6 @@ class BaseEstimator:
                 f"Unknown precision option: {precision!r}. "
                 'Available options are "bf16", "f32" and None.'
             )
-        if precision == "bf16" and optimizer in ("nuts", "smc"):
-            raise NotImplementedError(BF16_SAMPLING)
         self.precision = precision
         self.device, self.dtype = resolve_device_dtype(device, dtype)
         self.optimizer = validate_string(optimizer, "optimizer", choices=set(OPTIMIZERS))
@@ -571,6 +574,13 @@ class BaseEstimator:
         seed = self.random_state if self.random_state is not None else DEFAULT_RANDOM_SEED
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _sampler_operands(self):
+        """The operands of the samplers' forms: with ``precision="bf16"``
+        every 2-d float32 one in bfloat16, as the JAX package's
+        ``run_inference`` casts ``loss_args`` before NUTS and SMC."""
+        args = getattr(self, "_loss_args", ())
+        return bf16_operands(args) if self.precision == "bf16" else args
+
     def _run_nuts(self):
         """The full posterior by NUTS over the flattened latents; the
         draws' mean and std (ddof 0) become the latents and their stds,
@@ -585,7 +595,9 @@ class BaseEstimator:
         shape against ~4e4 at the MAP, and centring at the warm start
         would leave the posterior's potential at ~1e7, whose float32
         rounding froze NUTS on the H100 (step size 1e-5, every tree at the
-        depth cap)."""
+        depth cap).  That MAP is the float32 one; with ``precision="bf16"``
+        the sampler, its Newton polish and Hessian read the bfloat16
+        operands (:meth:`_sampler_operands`)."""
         opts = {
             "num_warmup": max(self.n_iter, 200),
             "num_samples": max(self.n_iter, 200),
@@ -599,10 +611,12 @@ class BaseEstimator:
         shape = self.initial_value.shape
         z0 = minimize_lbfgs_value_and_grad(
             self._value_and_grad, self.initial_value.reshape(-1)).pre_transformation
-        potential = self._sampler_potential(z0)
+        args = self._sampler_operands()
+        potential = self._sampler_potential(z0, args)
         if precondition == "hessian":
-            z_map, _, _ = newton_polish_value_and_grad(potential, self._sampler_hessian, z0)
-            T = precondition_transform(factor_hessian(self._sampler_hessian(z_map), self.jitter))
+            hessian = self._sampler_hessian(args)
+            z_map, _, _ = newton_polish_value_and_grad(potential, hessian, z0)
+            T = precondition_transform(factor_hessian(hessian(z_map), self.jitter))
             potential = precondition_value_and_grad(potential, T, z_map)
             z0 = torch.zeros_like(z_map)
         for key in ("num_warmup", "num_samples", "num_chains", "max_tree_depth"):
@@ -637,7 +651,8 @@ class BaseEstimator:
         """The posterior by SMC from the prior (or, with ``start:
         "laplace"``, from the diagonal Laplace Gaussian at the L-BFGS MAP);
         the particles' mean and std (ddof 0) become the latents and their
-        stds."""
+        stds.  The log-likelihood and the Laplace start read
+        :meth:`_sampler_operands`."""
         if self.initial_value.ndim != 1:
             raise ValueError("optimizer='smc' currently supports 1-d latent vectors.")
         opts = {"num_particles": 1024}
@@ -645,13 +660,14 @@ class BaseEstimator:
         for key in _INT_SAMPLER_OPTION_KEYS & set(opts):
             opts[key] = int(opts[key])
         start = opts.pop("start", "prior")
+        args = self._sampler_operands()
         if start == "laplace":
             loglik, prior_kwargs = laplace_start_value_and_grad(
-                as_batched(self._loss_fn, self._loss_args), self.initial_value,
-                self._hessian_diagonal,
+                as_batched(self._loss_fn, args), self.initial_value,
+                hessian_diagonal_of(self._loss_fn, args),
             )
         else:
-            loglik, prior_kwargs = as_batched(loglik_from_loss(self._loss_fn), self._loss_args), {}
+            loglik, prior_kwargs = as_batched(loglik_from_loss(self._loss_fn), args), {}
         result = run_smc(loglik, int(self.initial_value.shape[0]), self._sampler_generator(),
                          dtype=self.dtype, **prior_kwargs, **opts)
         self.pre_transformation = result.particles.mean(dim=0)

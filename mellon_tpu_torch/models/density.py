@@ -78,7 +78,8 @@ class DensityEstimator(BaseEstimator):
     drawing them by k-means.  ``jit`` is accepted and ignored, and so is
     ``sampler_options["steps_per_call"]``.  ``precision="bf16"`` runs the
     two-phase L-BFGS MAP (3/4 of the steps with L stored in bfloat16, then
-    float32); bf16 sampling raises.  ``optimizer="nuts"`` or
+    float32); with ``optimizer="nuts"`` or ``"smc"`` the sampler reads L
+    in bfloat16, as the JAX package's does.  ``optimizer="nuts"`` or
     ``"smc"`` keeps the posterior draws (``posterior_samples``,
     ``mcmc_result`` or ``smc_result``; NUTS also ``sampling_time``,
     ``ess`` and ``ess_per_second``), seeded from ``random_state``.
@@ -227,7 +228,9 @@ class DensityEstimator(BaseEstimator):
         Laplace approximation and the samplers take, each in closed form for
         the density loss: value and gradient at one z (and the operands
         that the bf16 MAP rounds), the batched loss, the Hessian diagonal,
-        the samplers' zero-centred batched potential and the Hessian."""
+        and, from the operands they are given (bfloat16 ones for bf16
+        sampling), the samplers' zero-centred batched potential and the
+        Hessian."""
         self._loss_fn, self._loss_args = loss_fn, tuple(loss_args)
         self._make_value_and_grad = (
             (lambda *args: value_and_grad_of(loss_fn, *args)) if loss_args else None
@@ -236,9 +239,9 @@ class DensityEstimator(BaseEstimator):
         self._value_and_grad = batched.one_row
         self._loss_batch = batched.values
         self._hessian_diagonal = hessian_diagonal_of(loss_fn, loss_args)
-        self._sampler_potential = lambda z0: as_batched(
-            *zero_centered_potential(loss_fn, z0, loss_args))
-        self._sampler_hessian = hessian_of(loss_fn, loss_args)
+        self._sampler_potential = lambda z0, args=loss_args: as_batched(
+            *zero_centered_potential(loss_fn, z0, args))
+        self._sampler_hessian = lambda args=loss_args: hessian_of(loss_fn, args)
 
     def _set_log_density_x(self):
         self.log_density_x = compute_log_density_x(self.pre_transformation, self.transform)

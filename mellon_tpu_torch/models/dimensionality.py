@@ -209,8 +209,10 @@ class DimensionalityEstimator(BaseEstimator):
         self._value_and_grad = make_dimensionality_value_and_grad(*args)
         self._loss_batch = make_dimensionality_loss_batch(*args)
         self._hessian_diagonal = lambda z: dimensionality_hessian_diagonal(z, *args)
-        self._sampler_potential = lambda z0: zero_centered_dimensionality_potential(z0, *args)[0]
-        self._sampler_hessian = lambda z: dimensionality_hessian(z, *args)
+        # the samplers' forms, from the operands they are given (with
+        # precision="bf16", L and the k-NN distances in bfloat16)
+        self._sampler_potential = lambda z0, ops=args: zero_centered_dimensionality_potential(z0, *ops)[0]
+        self._sampler_hessian = lambda ops=args: lambda z: dimensionality_hessian(z, *ops)
         return compute_dimensionality_loss_func(
             self.distances, self.transform, self.initial_value.shape[0]
         )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Rehearse chip_smoke.py's paths from the FunctionEstimator on (14-26,
-28 and 29, all but [time matched]), and [fused] (30), on the CPU at a
-reduced size.
+28 and 29, all but [time matched]), [fused] (30) and [bf16 sampling]
+(31), on the CPU at a reduced size.
 
     python scripts/chip_smoke_rehearsal.py [outputs]
 
@@ -18,8 +18,10 @@ there), [atlas] on 20,000 cells with 500 landmarks and its subscale on
 the reference's first 5,000 cells, [ivf] on the atlas's cells and that
 subscale, [tutorials] whole, [fused] on the same cells and time points as
 [time] (the graphs exist only on the card: the stage functions run
-eagerly), and [nuts], [dimensionality nuts] and
-[checkpoint] at 4 chains, 30 warmup and 10 draws, with the certificates
+eagerly), [bf16 sampling] on a default fit of those cells and [atlas]'s
+estimator (its potentials timed on the host clock), and [nuts],
+[dimensionality nuts], [checkpoint] and [bf16 sampling]'s samplers at 4
+chains, 30 warmup and 10 draws, with the certificates
 and sampler bars of these reduced runs reported, not held: the control
 flow, the launch counts and the float32-vs-float64 gaps that
 chip_smoke.py's bars were set from.  Its seconds are CPU seconds and say
@@ -29,6 +31,7 @@ full course's).
 
 import os
 import sys
+import statistics
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -55,6 +58,18 @@ def run_paths(paths):
     return 1 if failed else 0
 
 
+def host_ms(fn, launches=cs.N_LAUNCHES, runs=cs.N_RUNS):
+    """chip_smoke.device_ms on the host's clock."""
+    fn()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / launches)
+    return statistics.median(times)
+
+
 def main():
     torch.set_num_threads(4)
     torch.cuda.synchronize = lambda *args, **kwargs: None
@@ -68,6 +83,8 @@ def main():
     cs.NYSTROEM = dict(cs.NYSTROEM, n_landmarks=600)
     cs.ATLAS_CELLS, cs.ATLAS_LANDMARKS, cs.ATLAS_BIG_COLUMNS = 20_000, 500, 300
     cs.DIM_NUTS_OPTIONS = cs.NUTS_OPTIONS = dict(num_chains=4, num_warmup=30, num_samples=10)
+    cs.BF16_SAMPLING = dict(cs.BF16_SAMPLING, **cs.NUTS_OPTIONS)
+    cs.device_ms = host_ms
     cs.NUTS_MIN_ESS, cs.NUTS_MAX_RHAT = 0, float("inf")
     cs.CERT_MIN_CORR, cs.CERT_MAX_RMSE = -1.0, float("inf")
     cs.NYSTROEM_CERT_MIN_CORR, cs.NYSTROEM_CERT_MAX_RMSE = -1.0, float("inf")
@@ -120,6 +137,8 @@ def main():
         "checkpoint": lambda r: cs.checkpoint_path(mt, r["nuts"][1], x_new),
         "tutorials": lambda r: cs.tutorials_path(),
         "fused": lambda r: cs.fused_path(mt, x_np, Y),
+        "bf16 sampling": lambda r: cs.bf16_path(mt, mt.DensityEstimator().fit(x_np),
+                                                r["atlas"][2], x_new, "CPU"),
     }
     return run_paths(paths)
 

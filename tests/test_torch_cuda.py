@@ -543,6 +543,47 @@ def test_bf16_map_on_card(cuda):
     assert np.std(ld16 - ld32) / np.std(ld32) < 0.05
 
 
+def test_bf16_sampling_on_card_matches_cpu(cuda):
+    """The bf16 density forms on the card (L read in bfloat16 row blocks)
+    against the same forms on the CPU: values within 1e-6 relative,
+    gradient entries within one bfloat16 ulp of the likelihood part (plus
+    two float32 ulps of the entry), at least 99% equal, plain and centred.
+    Then sample_density_posterior(precision="bf16",
+    precondition="hessian") on a card fit: finite draws on the card,
+    function means within corr 0.99 of the float32 run's."""
+    from mellon_tpu_torch.inference.mcmc import sample_density_posterior
+
+    rng = np.random.RandomState(5)
+    L = (rng.randn(3000, 64) / 8).astype(np.float32)
+    nn = (0.05 + 0.3 * rng.rand(3000)).astype(np.float32)
+    Z = (0.5 * rng.randn(8, 64)).astype(np.float32)
+    out = {}
+    for device in ("cpu", "cuda"):
+        Lb = torch.as_tensor(L, device=device).to(torch.bfloat16)
+        args = (Lb, torch.as_tensor(nn, device=device), 5.0, -3.0)
+        Zt = torch.as_tensor(Z, device=device)
+        for center in (None, Zt[0]):
+            v, g = make_density_value_and_grad_batch(*args, center=center)(Zt)
+            out[(device, center is None)] = (v.cpu().numpy(), g.cpu().numpy())
+    for plain in (True, False):
+        (v_cpu, g_cpu), (v, g) = out[("cpu", plain)], out[("cuda", plain)]
+        np.testing.assert_allclose(v, v_cpu, rtol=1e-6)
+        likelihood = np.abs(Z - g_cpu).astype(np.float64)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(likelihood, 1e-30))) - 7)
+        assert np.all(np.abs(g - g_cpu) <= ulp + 2 * np.spacing(np.abs(g_cpu)))
+        assert np.mean(g == g_cpu) >= 0.99
+    x = np.random.RandomState(6).randn(2000, 5).astype(np.float32)
+    est = mellon_tpu_torch.DensityEstimator(n_landmarks=200, device=cuda)
+    est.fit(x)
+    run = dict(num_warmup=100, num_samples=100, num_chains=4, max_tree_depth=6, seed=1,
+               precondition="hessian")
+    res16, f16 = sample_density_posterior(est, precision="bf16", **run)
+    _, f32 = sample_density_posterior(est, **run)
+    assert res16.samples.is_cuda and bool(torch.isfinite(res16.samples).all())
+    m16, m32 = f16.mean(dim=0).double().cpu().numpy(), f32.mean(dim=0).double().cpu().numpy()
+    assert np.corrcoef(m16, m32)[0, 1] > 0.99
+
+
 def test_checkpoint_saved_on_card_loads_on_card(cuda, tmp_path):
     """A checkpoint of card tensors and a card generator, loaded with no
     ``device=``, comes back on the card, generator included, with the

@@ -163,13 +163,17 @@ def test_bf16_operands_round_like_jax():
 def test_bf16_loss_reads_l_in_row_blocks(monkeypatch):
     """With L in bfloat16 the loss and gradient upcast L block by block:
     equal (1e-6 relative, float32 sums in another order) to the same
-    function on the upcast matrix, for blocks smaller than L."""
+    function with L read in one block, for blocks smaller than L.  (The
+    bf16 function itself, z and Lᵀ(1 − e) rounded to bfloat16 as the JAX
+    package rounds them, is held to JAX in test_torch_bf16_sampling.py;
+    it is not the float32 function on the upcast matrix.)"""
     from mellon_tpu_torch.inference import losses
 
     L, nn, d, mu = _bf16_problem()
     L16 = torch.as_tensor(L).to(torch.bfloat16)
     z = torch.as_tensor(np.random.RandomState(1).randn(32).astype(np.float32))
-    want = losses.make_density_value_and_grad(L16.float(), torch.as_tensor(nn), d, mu)(z)
+    assert L16.shape[0] <= losses.BF16_CHUNK_ROWS
+    want = losses.make_density_value_and_grad(L16, torch.as_tensor(nn), d, mu)(z)
     monkeypatch.setattr(losses, "BF16_CHUNK_ROWS", 64)
     got = losses.make_density_value_and_grad(L16, torch.as_tensor(nn), d, mu)(z)
     np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)

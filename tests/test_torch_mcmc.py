@@ -340,16 +340,11 @@ def test_sampler_options_accepted():
 
 
 def test_unported_sampling_options_raise(fitted):
-    """bf16 sampling (ROADMAP Queue 3) raises NotImplementedError
-    naming its entry; a chain_sharding that is not a sharding of
-    mellon_tpu_torch.parallel is a TypeError; an unknown precision is a
-    ValueError as in the JAX package."""
+    """A chain_sharding that is not a sharding of mellon_tpu_torch.parallel
+    is a TypeError; an unknown precision, precondition or algorithm is a
+    ValueError as in the JAX package (bf16 sampling runs:
+    tests/test_torch_bf16_sampling.py)."""
     _, est = fitted
-    for optimizer in ("nuts", "smc"):
-        with pytest.raises(NotImplementedError, match="bf16 sampling"):
-            mellon_tpu_torch.DensityEstimator(optimizer=optimizer, precision="bf16")
-    with pytest.raises(NotImplementedError, match="bf16 sampling"):
-        mcmc.sample_density_posterior(est, precision="bf16")
     with pytest.raises(ValueError, match="precision"):
         mcmc.sample_density_posterior(est, precision="fp8")
     with pytest.raises(ValueError, match="precondition"):
