@@ -2737,29 +2737,31 @@ def fused_prepare(fused, make, args, enabled, count_syncs=False):
 
 
 def stage_seconds(fused, make, args, eager):
-    """The fused prepare's stage calls of one prepare, each synced and
-    timed: replayed graphs, or (``eager``) the stage functions run eagerly
-    without them.  Returns {slot: seconds}."""
-    import torch
+    """The fused prepare's stages in one prepare, read from the program's
+    ``prepare.stage1`` and ``prepare.stage2`` spans: device seconds between
+    the spans' CUDA events where the card timed them (host seconds on the
+    CPU), of the replayed graphs or (``eager``) of the stage functions run
+    eagerly, a graph memory share of 0 capturing nothing.  An eager run
+    drops the slots' graphs; they are put back after it, so that later
+    prepares replay them.  Returns {span: seconds}."""
+    from mellon_tpu_torch.utils import profiling
 
-    run, rows = fused._run, {}
-
-    def timed(slot, key, fn, inputs, seeds=(), capture=False):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if eager:
-            out = fn(*inputs, *fused._generators(inputs[0].device, seeds))
-        else:
-            out = run(slot, key, fn, inputs, seeds, capture)
-        torch.cuda.synchronize()
-        rows[slot] = time.perf_counter() - t0
-        return out
-
-    fused._run = timed
+    share, graphs = fused.GRAPH_MEMORY_SHARE, dict(fused._GRAPHS)
+    if eager:
+        fused.GRAPH_MEMORY_SHARE = 0
+    profiling.start()
     try:
         fused_prepare(fused, make, args, True)
     finally:
-        fused._run = run
+        profiling.stop()
+        fused.GRAPH_MEMORY_SHARE = share
+        if eager:
+            fused._GRAPHS.update(graphs)
+    rows = {}
+    for s in profiling.take()["spans"]:
+        if s["name"] in ("prepare.stage1", "prepare.stage2"):
+            seconds = s["host_s"] if s["device_s"] is None else s["device_s"]
+            rows[s["name"]] = rows.get(s["name"], 0.0) + seconds
     return rows
 
 

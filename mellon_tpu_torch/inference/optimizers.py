@@ -39,6 +39,7 @@ from collections import deque, namedtuple
 
 import torch
 
+from ..utils import profiling
 from .samplers import as_batched
 
 logger = logging.getLogger("mellon_tpu_torch")
@@ -126,6 +127,7 @@ def _line_search(fun, z, value, grad, direction, phi0):
         parts = [v, torch.dot(g, direction), torch.linalg.vector_norm(g)]
         if dphi0 is None:
             parts.append(dphi0_dev)
+        profiling.count("host_reads")
         host = torch.stack(parts).tolist()
         if dphi0 is None:
             dphi0 = host[3]
@@ -297,6 +299,7 @@ def _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size):
     fun = value_and_grad
     z = initial_value.clone()
     value, grad = fun(z)
+    profiling.count("host_reads")
     phi, gnorm = torch.stack([value, torch.linalg.vector_norm(grad)]).tolist()
     n_evals = 1
     history = deque(maxlen=memory_size)
@@ -334,6 +337,7 @@ def _lbfgs(value_and_grad, initial_value, max_iter, tol, memory_size):
         gamma = torch.where((sy > 0) & (yy > 0), sy / yy, torch.ones_like(sy))
         z, value, grad, phi, gnorm = trial.z, trial.value, trial.grad, trial.phi, trial.gnorm
         count += 1
+    profiling.count("lbfgs.evaluations", n_evals)
     return LBFGSResult(z, phi, count, n_evals, gnorm < tol * max(1.0, abs(phi)))
 
 

@@ -30,6 +30,7 @@ import torch
 
 from ..config import resolve_device_dtype
 from ..ops.kernels import FOREIGN_PACKAGES, Covariance
+from ..utils import profiling
 from ..utils.util import (
     deserialize,
     ensure_2d,
@@ -174,17 +175,18 @@ class Predictor(ABC):
 
     def mean(self, x, normalize=False):
         """Conditional mean at x, optionally normalized by log(n_obs)."""
-        x = self._validate(x)
-        normalize = validate_bool(normalize, "normalize")
-        if not normalize:
-            return _chunked_rows(self._mean, x)
-        _check_n_obs(
-            self,
-            "Cannot normalize without n_obs. Please set self.n_obs to "
-            "the number of samples/cells trained on to enable normalization.",
-        )
-        _normalization_warnings(self)
-        return _chunked_rows(self._mean, x) - math.log(self.n_obs)
+        with profiling.span("predictor.mean"):
+            x = self._validate(x)
+            normalize = validate_bool(normalize, "normalize")
+            if not normalize:
+                return _chunked_rows(self._mean, x)
+            _check_n_obs(
+                self,
+                "Cannot normalize without n_obs. Please set self.n_obs to "
+                "the number of samples/cells trained on to enable normalization.",
+            )
+            _normalization_warnings(self)
+            return _chunked_rows(self._mean, x) - math.log(self.n_obs)
 
     __call__ = mean
 

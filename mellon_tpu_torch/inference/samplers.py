@@ -56,6 +56,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from .losses import BatchedPotential, density_loss, density_potential
 
 DIVERGENCE_THRESHOLD = 1000.0
@@ -385,7 +386,8 @@ def nuts_kernel(potential_fn, max_tree_depth=10, divergence_threshold=DIVERGENCE
 
     def any_active(active):
         step.host_reads += 1
-        return bool(active.any())
+        with profiling.span("nuts.host_read"):
+            return bool(active.any())
 
     def build_subtree(tree, draws, depth, direction, step_size, inv_mass_diag, energy0, active):
         """Up to 2**depth leapfrog steps in ``direction`` from the moving
@@ -422,40 +424,42 @@ def nuts_kernel(potential_fn, max_tree_depth=10, divergence_threshold=DIVERGENCE
         for leaf_idx in range(2**depth):
             if leaf_idx > 0 and not any_active(active):
                 break
-            state = _scaled_leapfrog(value_and_grad, half_step, step_mass, state)
-            energy = torch.nan_to_num(state.potential + _kinetic(inv_mass_diag, state.r),
-                                      nan=math.inf, posinf=math.inf, neginf=-math.inf)
-            # log weight of the leaf relative to the start, -(energy - energy0)
-            leaf_weight = energy0 - energy
-            leaf_diverging = leaf_weight < -divergence_threshold
-            accept_prob = torch.clamp(torch.exp(leaf_weight), max=1.0)
-            sub_weight_new = torch.logaddexp(sub_weight, leaf_weight)
-            # progressive multinomial sampling within the subtree
-            take = active & (draws.leaf(C, like) < torch.exp(leaf_weight - sub_weight_new))
-            sub_weight = sub_weight_new
-            sub_r_sum = sub_r_sum + state.r
+            with profiling.span("nuts.leaf"):
+                with profiling.span("nuts.potential", like.device):
+                    state = _scaled_leapfrog(value_and_grad, half_step, step_mass, state)
+                energy = torch.nan_to_num(state.potential + _kinetic(inv_mass_diag, state.r),
+                                          nan=math.inf, posinf=math.inf, neginf=-math.inf)
+                # log weight of the leaf relative to the start, -(energy - energy0)
+                leaf_weight = energy0 - energy
+                leaf_diverging = leaf_weight < -divergence_threshold
+                accept_prob = torch.clamp(torch.exp(leaf_weight), max=1.0)
+                sub_weight_new = torch.logaddexp(sub_weight, leaf_weight)
+                # progressive multinomial sampling within the subtree
+                take = active & (draws.leaf(C, like) < torch.exp(leaf_weight - sub_weight_new))
+                sub_weight = sub_weight_new
+                sub_r_sum = sub_r_sum + state.r
 
-            # checkpointing: even leaves store, odd leaves test
-            idx_min, idx_max = _leaf_checkpoint_idxs(leaf_idx)
-            if leaf_idx % 2 == 0:
-                r_ckpts[:, idx_max] = state.r
-                r_sum_ckpts[:, idx_max] = sub_r_sum
-                stop = leaf_diverging
-            else:
-                leaf_turning = _iterative_turning_check(
-                    inv_mass_diag, idx_min, idx_max, state.r, sub_r_sum, r_ckpts, r_sum_ckpts
-                )
-                turning = turning | (active & leaf_turning)
-                stop = leaf_turning | leaf_diverging
+                # checkpointing: even leaves store, odd leaves test
+                idx_min, idx_max = _leaf_checkpoint_idxs(leaf_idx)
+                if leaf_idx % 2 == 0:
+                    r_ckpts[:, idx_max] = state.r
+                    r_sum_ckpts[:, idx_max] = sub_r_sum
+                    stop = leaf_diverging
+                else:
+                    leaf_turning = _iterative_turning_check(
+                        inv_mass_diag, idx_min, idx_max, state.r, sub_r_sum, r_ckpts, r_sum_ckpts
+                    )
+                    turning = turning | (active & leaf_turning)
+                    stop = leaf_turning | leaf_diverging
 
-            rows = take[:, None]
-            z_prop = torch.where(rows, state.z, z_prop)
-            pot_prop = torch.where(take, state.potential, pot_prop)
-            grad_prop = torch.where(rows, state.grad, grad_prop)
-            diverging = diverging | (active & leaf_diverging)
-            sum_accept = torch.where(active, sum_accept + accept_prob, sum_accept)
-            leaves += active
-            active = active & ~stop
+                rows = take[:, None]
+                z_prop = torch.where(rows, state.z, z_prop)
+                pot_prop = torch.where(take, state.potential, pot_prop)
+                grad_prop = torch.where(rows, state.grad, grad_prop)
+                diverging = diverging | (active & leaf_diverging)
+                sum_accept = torch.where(active, sum_accept + accept_prob, sum_accept)
+                leaves += active
+                active = active & ~stop
 
         return (state, sub_r_sum, sub_weight, z_prop, pot_prop, grad_prop,
                 turning, diverging, sum_accept, _subtree_steps(leaves, depth))

@@ -82,6 +82,7 @@ from ..parameters import (
     compute_nn_distances,
     compute_rank,
 )
+from ..utils import profiling
 from ..utils.parameter_validation import (
     validate_cov_func,
     validate_cov_func_curry,
@@ -494,9 +495,11 @@ class BaseEstimator:
             # the fused prepare's optimistic factor is checked through the
             # loss on the L-BFGS path only; here it is checked now
             self._fused_lp_fallback = None
+            profiling.count("host_reads")
             if not bool(torch.isfinite(self.initial_value).all()):
                 self._rebuild_optimistic_factor(fallback)
             else:
+                profiling.count("host_reads")
                 log_escalation(self.jitter, int(fallback[2]))
         logger.info("Running inference using %s.", optimizer)
         self.pre_transformation_std = None
@@ -547,6 +550,7 @@ class BaseEstimator:
             if fallback is not None:
                 # the retries the factor took, read once the optimizer has
                 # run: the lazy chain's warnings for them
+                profiling.count("host_reads")
                 log_escalation(self.jitter, int(fallback[2]))
             self.pre_transformation = results.pre_transformation.reshape(shape)
             self.losses = [results.loss]

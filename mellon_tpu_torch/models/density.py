@@ -42,6 +42,7 @@ from ..parameters import (
     compute_initial_value,
     compute_mu,
 )
+from ..utils import profiling
 from ..utils.util import DEFAULT_JITTER, object_html
 from ..utils.validation import validate_array, validate_string
 from .base import DEFAULT_COV_FUNC, OPTIMIZERS, BaseEstimator
@@ -271,18 +272,19 @@ class DensityEstimator(BaseEstimator):
     def prepare_inference(self, x):
         """Set every attribute the optimization needs; returns
         ``(loss_func, initial_value)``."""
-        x = self.set_x(x)
-        for attribute in SIZE_ATTRIBUTES:
-            self._prepare_attribute(attribute)
-        self.validate_parameter()
-        # the default sparse configuration: the fused prepare sets the
-        # attributes through nn_distances..initial_value with one host read
-        # (the lazy chain below then finds them set); any customization
-        # falls through to the lazy chain
-        maybe_fused_sparse_prepare(self) or maybe_fused_nystroem_prepare(self)
-        for attribute in PREPARED_ATTRIBUTES:
-            self._prepare_attribute(attribute)
-        return self.loss_func, self.initial_value
+        with profiling.span("prepare"):
+            x = self.set_x(x)
+            for attribute in SIZE_ATTRIBUTES:
+                self._prepare_attribute(attribute)
+            self.validate_parameter()
+            # the default sparse configuration: the fused prepare sets the
+            # attributes through nn_distances..initial_value with one host read
+            # (the lazy chain below then finds them set); any customization
+            # falls through to the lazy chain
+            maybe_fused_sparse_prepare(self) or maybe_fused_nystroem_prepare(self)
+            for attribute in PREPARED_ATTRIBUTES:
+                self._prepare_attribute(attribute)
+            return self.loss_func, self.initial_value
 
     def run_inference(self, loss_func=None, initial_value=None, optimizer=None):
         """Optimize the latents; returns ``pre_transformation``.  As in the

@@ -31,6 +31,7 @@ from ..parameters import (
     compute_initial_dimensionalities,
     compute_mu,
 )
+from ..utils import profiling
 from ..utils.util import DEFAULT_JITTER, object_html, object_str
 from ..utils.validation import validate_array, validate_float, validate_positive_int
 from .base import DEFAULT_COV_FUNC, BaseEstimator
@@ -265,16 +266,17 @@ class DimensionalityEstimator(BaseEstimator):
     def prepare_inference(self, x):
         """Set every attribute the optimization needs; returns
         ``(loss_func, initial_value)``."""
-        self.set_x(x)
-        for attribute in ("n_landmarks", "rank", "gp_type"):
-            self._prepare_attribute(attribute)
-        self.validate_parameter()
-        # the default sparse configuration: the fused prepare (one host
-        # read); customizations take the lazy chain
-        maybe_fused_dimensionality_prepare(self)
-        for attribute in PREPARED_ATTRIBUTES:
-            self._prepare_attribute(attribute)
-        return self.loss_func, self.initial_value
+        with profiling.span("prepare"):
+            self.set_x(x)
+            for attribute in ("n_landmarks", "rank", "gp_type"):
+                self._prepare_attribute(attribute)
+            self.validate_parameter()
+            # the default sparse configuration: the fused prepare (one host
+            # read); customizations take the lazy chain
+            maybe_fused_dimensionality_prepare(self)
+            for attribute in PREPARED_ATTRIBUTES:
+                self._prepare_attribute(attribute)
+            return self.loss_func, self.initial_value
 
     def run_inference(self, loss_func=None, initial_value=None, optimizer=None):
         """Fit the latents; returns ``pre_transformation`` (2, k).  A

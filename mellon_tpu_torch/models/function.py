@@ -21,6 +21,7 @@ import torch
 from ..inference.factories import compute_conditional
 from ..inference.optimizers import DEFAULT_INIT_LEARN_RATE, DEFAULT_N_ITER, DEFAULT_OPTIMIZER
 from ..parameters import DEFAULT_RANDOM_SEED
+from ..utils import profiling
 from ..utils.util import DEFAULT_JITTER, GaussianProcessType, ensure_2d, object_html, object_str
 from ..utils.validation import (
     validate_array,
@@ -146,17 +147,18 @@ class FunctionEstimator(BaseEstimator):
 
     def prepare_inference(self, x):
         """The kernel and the landmarks (there is nothing to optimize)."""
-        self.set_x(x)
-        self._prepare_attribute("n_landmarks")
-        self._prepare_attribute("gp_type")
-        # the default sparse configuration: the fused prepare (one host
-        # read); customizations take the lazy chain
-        maybe_fused_function_prepare(self)
-        if self.ls is None and self.cov_func is None:
-            self._prepare_attribute("nn_distances")
-        self._prepare_attribute("ls")
-        self._prepare_attribute("cov_func")
-        self._prepare_attribute("landmarks")
+        with profiling.span("prepare"):
+            self.set_x(x)
+            self._prepare_attribute("n_landmarks")
+            self._prepare_attribute("gp_type")
+            # the default sparse configuration: the fused prepare (one host
+            # read); customizations take the lazy chain
+            maybe_fused_function_prepare(self)
+            if self.ls is None and self.cov_func is None:
+                self._prepare_attribute("nn_distances")
+            self._prepare_attribute("ls")
+            self._prepare_attribute("cov_func")
+            self._prepare_attribute("landmarks")
 
     def compute_conditional(self, x=None, y=None, obs_variance=None):
         """The predictor conditioned on (x, y), with the estimator's landmark

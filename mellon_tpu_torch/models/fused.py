@@ -74,6 +74,7 @@ from ..ops.linalg import (
 )
 from ..ops.neighbors import DEFAULT_BATCH_SIZE, DEFAULT_COL_BLOCK, knn_distances  # noqa: F401
 from ..parameters import KMEANS_SUBSAMPLE_THRESHOLD, compute_cov_func
+from ..utils import profiling
 from ..utils.util import GaussianProcessType, mle
 from ..utils.validation import _nn_repair_impl, report_nn_repair
 
@@ -187,6 +188,7 @@ def _pack(*values):
 
 def _read_host(packed):
     """The prepare's one host read: the packed vector as Python numbers."""
+    profiling.count("host_reads")
     return packed.tolist()
 
 
@@ -459,8 +461,9 @@ def _stage_one_sparse(est, x, k):
     stage = partial(_sparse_stage, curry=curry, k=k, n_sub=n_sub,
                     ls_factor=float(est.ls_factor), jitter=float(est.jitter))
     key = (curry, k, n_sub, float(est.ls_factor), float(est.jitter))
-    nn, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
-        "density", key, stage, (x, d), (random_state, random_state), _captures(x, k))
+    with profiling.span("prepare.stage1", x.device):
+        nn, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
+            "density", key, stage, (x, d), (random_state, random_state), _captures(x, k))
     host = _read_host(packed)
     counts, (mu, ls, ok, r) = host[:4], host[4:8]
     report_nn_repair(*(int(c) for c in counts[:3]), bool(counts[3]))
@@ -506,14 +509,16 @@ def _finish_sparse_factorization(est, family, x, xu, K, Lp, ok, pivot, params,
 
     def run_ok(xu_, Lp_):
         stage = partial(_factorize_stage, curry=curry, n_params=n_params, targets=targets)
-        return _run(f"{family} factorize", static, stage,
-                    (x, xu_, Lp_, *params, *target_operands), capture=capture)
+        with profiling.span("prepare.stage2", x.device):
+            return _run(f"{family} factorize", static, stage,
+                        (x, xu_, Lp_, *params, *target_operands), capture=capture)
 
     def run_prune(piv_):
         stage = partial(_prune_factorize_stage, curry=curry, n_params=n_params,
                         targets=targets, jitter=jitter)
-        return _run(f"{family} prune factorize", static, stage,
-                    (K, piv_, x, xu, *params, *target_operands), capture=capture)
+        with profiling.span("prepare.stage2", x.device):
+            return _run(f"{family} prune factorize", static, stage,
+                        (K, piv_, x, xu, *params, *target_operands), capture=capture)
 
     _finish_factorization(est, x, xu, K, Lp, ok, x.dtype == torch.float64, run_ok, run_prune,
                           pivot=pivot)
@@ -602,8 +607,9 @@ def maybe_fused_function_prepare(est):
     logger.info("Computing nearest neighbor distances.")
     n_sub, random_state = _landmark_preamble(est, n, k)
     stage = partial(_function_stage, k=k, n_sub=n_sub, ls_factor=float(est.ls_factor))
-    nn, _, xu, packed = _run("function", (k, n_sub, float(est.ls_factor)), stage, (x,),
-                             (random_state, random_state), _captures(x, k))
+    with profiling.span("prepare.stage1", x.device):
+        nn, _, xu, packed = _run("function", (k, n_sub, float(est.ls_factor)), stage, (x,),
+                                 (random_state, random_state), _captures(x, k))
     host = _read_host(packed)
     report_nn_repair(*(int(c) for c in host[:3]), bool(host[3]))
     ls = host[4]
@@ -649,8 +655,9 @@ def maybe_fused_dimensionality_prepare(est):
     stage = partial(_dim_stage, curry=curry, k=k, k_query=k_query, n_sub=n_sub,
                     ls_factor=float(est.ls_factor), jitter=float(est.jitter))
     key = (curry, k, k_query, n_sub, float(est.ls_factor), float(est.jitter))
-    distances, d, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
-        "dimensionality", key, stage, (x,), (random_state, random_state), _captures(x, k))
+    with profiling.span("prepare.stage1", x.device):
+        distances, d, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
+            "dimensionality", key, stage, (x,), (random_state, random_state), _captures(x, k))
     mu_dens, ls, ok, r = _read_host(packed)[:4]
 
     est.distances = distances
@@ -736,9 +743,10 @@ def maybe_fused_time_prepare(est):
                     normalize=do_normalize, ls_factor=float(est.ls_factor),
                     jitter=float(est.jitter))
     key = (curry, k, n_sub, n_times, do_normalize, float(est.ls_factor), float(est.jitter))
-    nn, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
-        "time", key, stage, (x, group, counts, targets, d, ls_time_t),
-        (random_state, random_state), _captures(x, k))
+    with profiling.span("prepare.stage1", x.device):
+        nn, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
+            "time", key, stage, (x, group, counts, targets, d, ls_time_t),
+            (random_state, random_state), _captures(x, k))
     host = _read_host(packed)
     report_nn_repair(*(int(c) for c in host[:3]), bool(host[3]))
     mu, ls, ok, r = host[4:8]
@@ -845,6 +853,7 @@ def _finish_factorization(est, x, xu, K, Lp, ok, x64, run_ok, run_prune, pivot=N
         est._fused_lp_fallback = (K, piv, tries)
         logger.info(f"Using rank {len(piv):,} covariance representation.")
         return
+    profiling.count("host_reads")
     tries = int(tries)
     if tries <= PRUNE_MAX_TRIES:
         log_escalation(est.jitter, tries)

@@ -28,6 +28,7 @@ from ..parameters import (  # noqa: F401
     compute_mu,
     compute_nn_distances_within_time_points,
 )
+from ..utils import profiling
 from ..utils.util import DEFAULT_JITTER, object_str
 from ..utils.validation import (  # noqa: F401
     validate_array,
@@ -275,18 +276,19 @@ class TimeSensitiveDensityEstimator(DensityEstimator):
     def prepare_inference(self, x, times=None):
         """Set every attribute the optimization needs; returns
         ``(loss_func, initial_value)``."""
-        if x is not None:
-            x = self._time_x(x, times)
-        x = self.set_x(x)
-        for attribute in SIZE_ATTRIBUTES:
-            self._prepare_attribute(attribute)
-        self.validate_parameter()
-        # the default sparse configuration with a given ls_time: the fused
-        # prepare (one host read); customizations take the lazy chain
-        maybe_fused_time_prepare(self)
-        for attribute in TIME_PREPARED_ATTRIBUTES:
-            self._prepare_attribute(attribute)
-        return self.loss_func, self.initial_value
+        with profiling.span("prepare"):
+            if x is not None:
+                x = self._time_x(x, times)
+            x = self.set_x(x)
+            for attribute in SIZE_ATTRIBUTES:
+                self._prepare_attribute(attribute)
+            self.validate_parameter()
+            # the default sparse configuration with a given ls_time: the fused
+            # prepare (one host read); customizations take the lazy chain
+            maybe_fused_time_prepare(self)
+            for attribute in TIME_PREPARED_ATTRIBUTES:
+                self._prepare_attribute(attribute)
+            return self.loss_func, self.initial_value
 
     def fit(self, x=None, times=None, build_predict=True):
         """End-to-end training on x (with ``times``, or time as its last

@@ -18,6 +18,7 @@ import logging
 
 import torch
 
+from ..utils import profiling
 from ..utils.util import DEFAULT_JITTER, add_diagonal, stabilize  # noqa: F401 (stabilize: re-exported)
 
 DEFAULT_RANK = 0.99
@@ -409,8 +410,11 @@ def _pivoted_cholesky_masked(K, rel_tol, max_rank, active=None, stop_early=False
             piv[j : j + 1] = torch.where(active, p, 0)
             r = r + active.to(torch.int64)
         k += steps
-        if stop_early and int(r) < k:
-            break
+        if stop_early:
+            profiling.count("pivot.steps", steps)
+            profiling.count("host_reads")
+            if int(r) < k:
+                break
     return piv, r, L
 
 
@@ -424,6 +428,7 @@ def _pivoted_cholesky(K, rel_tol, max_rank):
     steps (:func:`_pivoted_cholesky_masked`).
     """
     piv, r, L = _pivoted_cholesky_masked(K, rel_tol, max_rank, stop_early=True)
+    profiling.count("host_reads")
     return piv, int(r), L
 
 
@@ -437,15 +442,16 @@ def select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL, max_rank=None, quantize=Tr
     as a tensor on K's device.
     """
     m = K.shape[0]
-    if max_rank is None:
-        cap = min(m, 1024)
-        while True:
-            piv, r, _ = _pivoted_cholesky(K, rel_tol, cap)
-            if r < cap or cap >= m:
-                break
-            cap = min(2 * cap, m)
-    else:
-        piv, r, _ = _pivoted_cholesky(K, rel_tol, int(max_rank))
+    with profiling.span("prepare.pivots"):
+        if max_rank is None:
+            cap = min(m, 1024)
+            while True:
+                piv, r, _ = _pivoted_cholesky(K, rel_tol, cap)
+                if r < cap or cap >= m:
+                    break
+                cap = min(2 * cap, m)
+        else:
+            piv, r, _ = _pivoted_cholesky(K, rel_tol, int(max_rank))
     if quantize:
         buckets = [b for b in RANK_BUCKETS if b <= r]
         if buckets:
