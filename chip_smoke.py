@@ -6,16 +6,19 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 Phases, each printed as it runs (any failure raises and exits non-zero).
-Each path (3, 5-8, 11-26 and 28-31) runs with the kernel's launch count set to 0
-just before it and read just after, and fails if the kernel was not
-launched; the operands of every kernel call the covariance module makes on
+Each path (3, 5-8, 11-26 and 28-32) runs with the kernels' launch counts set to 0
+just before it and read just after, and fails if the Matern-5/2 kernel was
+not launched; the pivot step's launches are reported per path, and the
+main fit (3) fails unless it launched the pivot step past stage 1's
+1,024 steps (its selection continues them on the card); the operands of every kernel call the covariance module makes on
 these paths are kept for phase 4.  Path 27's ranks are processes of their
 own: each counts its launches from 0 over its fit and its sharded
 predictor and reports them with its calls' shapes, and the path fails if
 any rank launched the kernel no time.
 
 1. device: the card's name and power limit (from nvidia-smi);
-2. build: nvcc builds the Matern-5/2 kernel from csrc/ into build/;
+2. build: nvcc builds the Matern-5/2 kernel from csrc/ into build/ (the
+   pivot step's library is built at its first use);
 3. fit (the main path): DensityEstimator().fit_predict on the 8,627 x 20
    benchmark cells, certified against the host-float64 full-landmark fit
    stored in benchdata/ld_ref_8627x20_f64.npz (corr >= 0.999, RMSE <= 0.01
@@ -240,17 +243,32 @@ any rank launched the kernel no time.
    the samplers' 8-chain potential at the atlas shape in float32 and in
    bf16, device ms per call beside the bytes bound of reading L twice.  The kernel's launches inside a
    graph count at each replay, with the graph's buffers as operands.
+32. pivots (right after 30): select_stable_landmarks' selection
+   (``ops.linalg._pivot_selection``, before the round-down) on the tutorial's
+   5,000 x 5,000 landmark gram (the main path's 5,000 k-means landmarks and
+   length scale) in float32 and in float64, through the step kernel, whose
+   chunks replay a CUDA graph, against the plain step on the card
+   (compare_pivot_selections): each run's factor on its kept pivots
+   against the float64 Cholesky, their order's ``pivot_gap``, the kept
+   count, and the kept landmarks shared (float32) or the same pivots
+   (float64), each held to its limit; where the pivots part, the first
+   step at which they do and the two candidates' residual variances.
+   Then in float32 the seconds of each (median of PIVOT_RUNS, warm), the
+   steps, and the bytes bound of reading L[:, :j] once a step at HBM's
+   rate (``bound_ms``), which overstates the share: the steps whose
+   L[:, :j] fits in L2 (``l2_bytes_share`` of the bytes) may read faster.
 
 Phase 4 also checks the kernel at an atlas-shaped call past 2**31 output
 elements (the atlas cells against ATLAS_BIG_COLUMNS of their landmarks),
 on 2,000 rows at each end, the plain version timed in row blocks.
 The script prints its total seconds before the result lines.
 
-The line before the last is the JSON kernel report (``launches``: over
-all paths; ``ms``, ``plain_ms`` and ``bound_ms``: the kernel's, the plain
-version's and the bound's time summed over those launches; ``shapes``:
-each shape and type with its launches, its own times and share of the
-bound); the last line is ``{"ok": true, "device": {...}}``.  Without a
+The line before the last is the JSON kernel report: for the Matern-5/2
+tile ``launches`` over all paths; ``ms``, ``plain_ms`` and ``bound_ms``:
+the kernel's, the plain version's and the bound's time summed over those
+launches; ``shapes``: each shape and type with its launches, its own times
+and share of the bound; for the pivot step its launches over all paths and
+phase 32's times of one float32 selection; the last line is ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits with status 2 and prints no result.
 """
 
@@ -830,17 +848,20 @@ def predict_batch_phase(lib, x, y, ls, launches, dtype_label="float32"):
 
 
 def counted_path(hk, label, fn):
-    """``fn()`` with the kernel's launch count set to 0 just before it and
-    read just after; fails if the path launched the kernel no time.
-    Returns (fn's result, launches)."""
+    """``fn()`` with the kernels' launch counts set to 0 just before it and
+    read just after; fails if the path launched the Matern-5/2 kernel no
+    time (a path need not run the pivot step, whose count is logged and
+    left in ``hk.pivot_step.launches``).  Returns (fn's result, Matern-5/2
+    launches)."""
     import torch
 
     torch.cuda.synchronize()
     hk.matern52_gram.launches = 0
+    hk.pivot_step.launches = 0
     result = fn()
     torch.cuda.synchronize()
-    launches = hk.matern52_gram.launches
-    log(f"[{label}] kernel launches in this path: {launches}")
+    launches, pivot_launches = hk.matern52_gram.launches, hk.pivot_step.launches
+    log(f"[{label}] kernel launches in this path: {launches}; pivot steps: {pivot_launches}")
     if launches <= 0:
         raise AssertionError(f"the {label} path launched the matern52 kernel no time")
     return result, launches
@@ -2840,6 +2861,135 @@ def fused_path(mt, x_np, Y):
     return stats
 
 
+PIVOT_RUNS = 3
+PIVOT_LANDMARKS = 5000
+# the kernel against the plain step (tests/test_torch_cuda.py holds the same):
+# the factor on the kept pivots within PIVOT_FACTOR_TOL of float64's Cholesky
+# (or 1.25 times the plain step's gap), pivot_gap within 2e-6 (or twice the
+# plain step's), the same kept count; in float32 PIVOT_SHARED_F32 of the
+# kept landmarks shared, in float64 the same pivots
+PIVOT_FACTOR_TOL = {"float32": 1e-5, "float64": 1e-12}
+PIVOT_SHARED_F32 = 0.95
+# H100's L2 (NVIDIA's data sheet)
+L2_BYTES = 50 * 2**20
+
+
+def kept_factor(K, state, r):
+    """(the kept pivots, the largest gap between the run's factor on them
+    and the float64 Cholesky of K on them, their order's departure from the
+    greedy rule in float64: the benchmark's ``pivot_gap``) of a pivoted
+    selection's ``state`` that counted r steps, its count rounded down to
+    RANK_BUCKETS."""
+    import torch
+
+    from mellon_tpu_torch.ops import linalg
+
+    kept = state.piv[:max(b for b in linalg.RANK_BUCKETS if b <= r)]
+    K64 = K.double()[kept][:, kept]
+    R = torch.linalg.cholesky(K64)
+    error = float((state.L[kept, :len(kept)].double() - R).abs().max())
+    sq = R * R
+    residual = torch.diagonal(K64)[:, None] - (torch.cumsum(sq, dim=1) - sq)
+    later = torch.ones_like(K64, dtype=torch.bool).tril(-1)
+    excess = torch.where(later, residual - torch.diagonal(residual)[None, :], -torch.inf)
+    return kept, error, max(float(excess.max()), 0.0) / float(torch.diagonal(K64).max())
+
+
+def compare_pivot_selections(K):
+    """The selection of ``select_stable_landmarks`` (before its round-down)
+    on the CUDA gram K through the step kernel and through the plain step,
+    held to the criteria above (raises AssertionError where one fails).
+    Returns the numbers, and where the pivots part the first step at which
+    they do and the two candidates' residual variances there (float64,
+    from the plain run's columns before it)."""
+    import torch
+
+    from mellon_tpu_torch.ops import linalg
+
+    dtype = str(K.dtype).removeprefix("torch.")
+    state, r = linalg._pivot_selection(K, linalg.PIVOT_REL_TOL)
+    plain, r_plain = linalg._pivot_selection(K, linalg.PIVOT_REL_TOL, plain=True)
+    kept, error, gap = kept_factor(K, state, r)
+    kept_plain, error_plain, gap_plain = kept_factor(K, plain, r_plain)
+    shared = len(set(kept.tolist()) & set(kept_plain.tolist()))
+    same = r == r_plain and torch.equal(state.piv[:r], plain.piv[:r])
+    stats = {"dtype": dtype, "m": K.shape[0], "r": r, "r_plain": r_plain, "kept": len(kept),
+             "kept_plain": len(kept_plain), "shared": shared, "same_pivots": same,
+             "factor_gap": error, "factor_gap_plain": error_plain,
+             "pivot_gap": gap, "pivot_gap_plain": gap_plain}
+    width = min(state.piv.shape[0], plain.piv.shape[0])
+    parted = (state.piv[:width] != plain.piv[:width]).nonzero()
+    if len(parted):
+        i = int(parted[0])
+        L64 = plain.L[:, :i].double()
+        stats["parted_at"] = i
+        stats["residuals"] = {
+            name: float(K[c, c].double() - (L64[c] ** 2).sum())
+            for name, c in (("kernel", int(state.piv[i])), ("plain", int(plain.piv[i])))}
+    failed = []
+    if error > max(PIVOT_FACTOR_TOL[dtype], 1.25 * error_plain):
+        failed.append("factor_gap")
+    if gap > max(2e-6, 2 * gap_plain):
+        failed.append("pivot_gap")
+    if len(kept) != len(kept_plain):
+        failed.append("kept")
+    if dtype == "float64" and not same:
+        failed.append("same_pivots")
+    if dtype == "float32" and shared < PIVOT_SHARED_F32 * len(kept):
+        failed.append("shared")
+    if failed:
+        raise AssertionError(f"the pivot step kernel fails {failed}: {json.dumps(stats)}")
+    return stats
+
+
+def pivots_path(mt, x_np, est):
+    """[pivots]: the pivoted landmark selection on the tutorial's landmark
+    gram, step kernel against plain step (see phase 32)."""
+    import torch
+
+    from mellon_tpu_torch.ops import hopper_kernels, linalg
+    from mellon_tpu_torch.parameters import compute_landmarks
+
+    xu = compute_landmarks(torch.as_tensor(x_np, device=DEVICE), n_landmarks=PIVOT_LANDMARKS)
+    grams = {dtype: est.cov_func(xu.to(dtype), xu.to(dtype))
+             for dtype in (torch.float32, torch.float64)}
+    checks = [compare_pivot_selections(K) for K in grams.values()]
+    for check in checks:
+        log("[pivots] " + json.dumps(check))
+    K = grams[torch.float32]
+    m = K.shape[0]
+    select = lambda: linalg._pivot_selection(K, linalg.PIVOT_REL_TOL)  # noqa: E731
+    launches = hopper_kernels.pivot_step.launches
+    kernel_s, plain_s = [], []
+    for _ in range(PIVOT_RUNS):
+        (_, r), seconds = synced_seconds(select)
+        kernel_s.append(seconds)
+        _, seconds = synced_seconds(
+            lambda: linalg._pivot_selection(K, linalg.PIVOT_REL_TOL, plain=True))
+        plain_s.append(seconds)
+    chunks = -(-min(m, (r // linalg.PIVOT_CHUNK + 1) * linalg.PIVOT_CHUNK) // linalg.PIVOT_CHUNK)
+    steps = min(m, chunks * linalg.PIVOT_CHUNK)
+    launched = hopper_kernels.pivot_step.launches - launches
+    if launched != PIVOT_RUNS * chunks * linalg.PIVOT_CHUNK:
+        raise AssertionError(f"[pivots] {launched} kernel launches for {PIVOT_RUNS} selections "
+                             f"of {chunks} chunks")
+    # the bytes bound: L[:, :j] read once a step at HBM's rate; the steps
+    # whose L[:, :j] fits in L2 may read it faster, so the bound is high and
+    # the share with it (l2_bytes_share: those steps' part of the bytes)
+    step_bytes = [m * j * K.element_size() for j in range(steps)]
+    bound_ms = 1e3 * sum(step_bytes) / MEMORY_BYTES_PER_S
+    kernel_ms = 1e3 * statistics.median(kernel_s)
+    stats = {"m": m, "r": r, "steps": steps, "chunks": chunks,
+             "kernel_ms": kernel_ms, "kernel_runs_ms": [1e3 * t for t in kernel_s],
+             "plain_ms": 1e3 * statistics.median(plain_s),
+             "bound_ms": bound_ms, "bound_by": "bytes at HBM's rate",
+             "share": bound_ms / kernel_ms,
+             "l2_bytes_share": sum(b for b in step_bytes if b <= L2_BYTES) / sum(step_bytes),
+             "kernel_us_per_step": 1e3 * kernel_ms / steps}
+    log("[pivots] " + json.dumps(stats))
+    return {"timing": stats, "checks": checks}
+
+
 def staged_fit(est, x, prepared_attributes):
     """A fit of ``est`` on x with the card synchronized between its stages
     (``prepared_attributes`` in order, then L-BFGS, the log density and
@@ -2915,6 +3065,7 @@ def main():
         PREDICT_BATCH, x.shape[1], device=DEVICE, generator=g)).contiguous()
     calls, stop_recording = record_operands()
     hk.matern52_gram.launches = 0
+    hk.pivot_step.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     est = mt.DensityEstimator(device=DEVICE)
@@ -2922,6 +3073,7 @@ def main():
     torch.cuda.synchronize()
     first_fit_s = time.perf_counter() - t0
     fit_launches = hk.matern52_gram.launches
+    fit_pivot_launches = hk.pivot_step.launches
     pred = est.predict
     at_train = pred(x_np)
     at_new = pred(x_new)
@@ -2938,9 +3090,16 @@ def main():
     if len(calls) != launches or host_calls(calls):
         raise AssertionError(f"{len(calls)} kernel calls were made, {len(host_calls(calls))} "
                              f"of them on the host, but {launches} launched")
+    from mellon_tpu_torch.models.fused import FUSED_PIVOT_CAP
+
+    # stage 1's steps, then the selection's continued from them
+    if fit_pivot_launches <= FUSED_PIVOT_CAP:
+        raise AssertionError(f"the main fit launched the pivot step kernel {fit_pivot_launches} "
+                             f"times, not past stage 1's {FUSED_PIVOT_CAP}")
     n_kept = int(est.landmarks.shape[0])
     corr, rmse = certificate(ld, ld_ref)
-    log(f"[fit] first fit {first_fit_s:.3f} s; kernel launches in the fit: {fit_launches}")
+    log(f"[fit] first fit {first_fit_s:.3f} s; kernel launches in the fit: {fit_launches}; "
+        f"pivot steps: {fit_pivot_launches}")
     log(f"[fit] landmarks kept {n_kept} of 5000 (power of two: {n_kept & (n_kept - 1) == 0}); "
         f"L-BFGS {est.opt_state.n_steps} steps, {est.opt_state.n_evals} evaluations "
         f"(one host read each); loss {est.opt_state.loss!r}")
@@ -2956,11 +3115,13 @@ def main():
     if not (train_err <= 1e-3 and bool(torch.isfinite(at_train).all()) and bool(torch.isfinite(at_new).all())):
         raise AssertionError(f"predictor disagrees with f at the training points: {train_err}")
     path_launches = {"main": launches}
+    pivot_launches = {"main": hk.pivot_step.launches}
 
     default = {"landmarks_kept": n_kept, "certificate": {"corr": corr, "rmse": rmse}}
 
     def run(label, fn):
         (result, path_launches[label]), seconds = synced_seconds(lambda: counted_path(hk, label, fn))
+        pivot_launches[label] = hk.pivot_step.launches
         log(f"[{label}] path seconds {seconds!r}")
         return result
 
@@ -2968,6 +3129,8 @@ def main():
     # prepare, and the warm fits with and without them
     Y = gene_trends(x_np, FUNCTION_OUTPUTS)
     run("fused", lambda: fused_path(mt, x_np, Y))
+    # 32. the pivoted landmark selection, step kernel against plain step
+    pivots = run("pivots", lambda: pivots_path(mt, x_np, est))["timing"]
     # 5-8. the paths of the predictor's uncertainty, ADVI, derivatives and
     # JSON, each with its own launch count
     run("uncertainty", lambda: uncertainty_path(mt, x_np, x_new, xq, ld_ref))
@@ -3024,6 +3187,7 @@ def main():
                       torch.randn(m, d, device=DEVICE, dtype=dtype, generator=g), ls))
     launches = sum(path_launches.values())
     log(f"[paths] kernel launches: {json.dumps(path_launches)}")
+    log(f"[paths] pivot step launches: {json.dumps(pivot_launches)}")
 
     # 4. the kernel against its plain version, on the paths' operands, and
     # at an atlas-shaped call past 2**31 output elements
@@ -3093,6 +3257,20 @@ def main():
         "share": bound_ms / ms,
         "wrapper_host_us": host_us,
         "shapes": rows,
+    }, {
+        "name": "pivot_step",
+        "route": "cuda",
+        "source": "mellon_tpu_torch/csrc/pivot_step.cu",
+        "replaces": None,
+        "launches": sum(pivot_launches.values()),
+        "ms": pivots["kernel_ms"],
+        "plain_ms": pivots["plain_ms"],
+        "bound_ms": pivots["bound_ms"],
+        "bound_by": pivots["bound_by"],
+        "library_ms": None,
+        "share": pivots["share"],
+        "l2_bytes_share": pivots["l2_bytes_share"],
+        "shape": f"{pivots['m']}x{pivots['m']} float32, {pivots['steps']} steps",
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -78,8 +78,8 @@ from ..utils import profiling
 from ..utils.util import GaussianProcessType, mle
 from ..utils.validation import _nn_repair_impl, report_nn_repair
 
-# pivot-factor width inside stage 1; a selection that reaches it falls back
-# to the doubling selection of select_stable_landmarks
+# pivot-factor width inside stage 1; a selection that reaches it continues
+# from stage 1's state in select_stable_landmarks
 FUSED_PIVOT_CAP = 1024
 # the jitter retries of the pruned landmark factor, as the lazy chain's
 # safe_cholesky(..., max_tries=3)
@@ -166,11 +166,13 @@ def _chol_attempt_with_pivot(K, jitter):
     that applies where it failed, with no host read: the selection's
     min(m, FUSED_PIVOT_CAP) steps all run, masked from the start where the
     attempt succeeded (pivots 0, r = 0), as ``lax.cond`` selects in the JAX
-    package.  Returns (Lp, ok, pivots, r) as tensors."""
+    package.  Returns (Lp, ok, pivots, r) as tensors, and then the
+    selection's L and residual diagonal d, from which a selection that
+    reached the cap continues (:func:`_pruned_pivots`)."""
     Lp, ok = _jittered_cholesky(K, jitter)
     cap = min(K.shape[0], FUSED_PIVOT_CAP)
-    piv, r, _ = _pivoted_cholesky_masked(K, PIVOT_REL_TOL, cap, active=~ok)
-    return Lp, ok, piv, r
+    state = _pivoted_cholesky_masked(K, PIVOT_REL_TOL, cap, active=~ok)
+    return Lp, ok, state.piv, state.r, state.L, state.d
 
 
 def _device_scalar(value, x, dtype=None):
@@ -205,8 +207,8 @@ def _sparse_stage(x, d, sub_generator, generator, *, curry, k, n_sub, ls_factor,
     ls = _length_scale(nn, ls_factor)
     xu = _landmarks(x, k, n_sub, sub_generator, generator)
     K = compute_cov_func(curry, ls)(xu, xu)
-    Lp, ok, piv, r = _chol_attempt_with_pivot(K, jitter)
-    return nn, mu, ls, xu, K, Lp, piv, _pack(counts, mu, ls, ok, r, piv)
+    Lp, ok, piv, r, L, d_res = _chol_attempt_with_pivot(K, jitter)
+    return nn, mu, ls, xu, K, Lp, piv, L, d_res, _pack(counts, mu, ls, ok, r, piv)
 
 
 def _time_stage(x, group, counts, targets, d, ls_time, sub_generator, generator, *,
@@ -234,8 +236,8 @@ def _time_stage(x, group, counts, targets, d, ls_time, sub_generator, generator,
     xu = _landmarks(x_rescaled, k, n_sub, sub_generator, generator)
     xu[:, -1] /= time_factor
     K = compute_cov_func(curry, ls, ls_time)(xu, xu)
-    Lp, ok, piv, r = _chol_attempt_with_pivot(K, jitter)
-    return nn, mu, ls, xu, K, Lp, piv, _pack(repair, mu, ls, ok, r, piv)
+    Lp, ok, piv, r, L, d_res = _chol_attempt_with_pivot(K, jitter)
+    return nn, mu, ls, xu, K, Lp, piv, L, d_res, _pack(repair, mu, ls, ok, r, piv)
 
 
 def _dim_stage(x, sub_generator, generator, *, curry, k, k_query, n_sub, ls_factor, jitter):
@@ -252,8 +254,8 @@ def _dim_stage(x, sub_generator, generator, *, curry, k, k_query, n_sub, ls_fact
     ls = _length_scale(nn, ls_factor)
     xu = _landmarks(x, k, n_sub, sub_generator, generator)
     K = compute_cov_func(curry, ls)(xu, xu)
-    Lp, ok, piv, r = _chol_attempt_with_pivot(K, jitter)
-    return distances, d, mu_dens, ls, xu, K, Lp, piv, _pack(mu_dens, ls, ok, r, piv)
+    Lp, ok, piv, r, L, d_res = _chol_attempt_with_pivot(K, jitter)
+    return distances, d, mu_dens, ls, xu, K, Lp, piv, L, d_res, _pack(mu_dens, ls, ok, r, piv)
 
 
 def _function_stage(x, sub_generator, generator, *, k, n_sub, ls_factor):
@@ -448,7 +450,8 @@ def _sparse_declines(est, gp_type):
 def _stage_one_sparse(est, x, k):
     """Stage 1 of the density prepares (shared by the sparse and the sparse
     Nyström types) and its host read; sets nn_distances, d, mu, ls and
-    cov_func.  Returns (xu, K, Lp, ok, (device pivots, r), stage outputs)."""
+    cov_func.  Returns (xu, K, Lp, ok, (device pivots, r, their L, the
+    residual diagonal), stage outputs)."""
     n, d_int = x.shape
     logger.info("Computing nearest neighbor distances.")
     logger.info(
@@ -462,7 +465,7 @@ def _stage_one_sparse(est, x, k):
                     ls_factor=float(est.ls_factor), jitter=float(est.jitter))
     key = (curry, k, n_sub, float(est.ls_factor), float(est.jitter))
     with profiling.span("prepare.stage1", x.device):
-        nn, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
+        nn, mu_t, ls_t, xu, K, Lp, piv, L_piv, d_piv, packed = _run(
             "density", key, stage, (x, d), (random_state, random_state), _captures(x, k))
     host = _read_host(packed)
     counts, (mu, ls, ok, r) = host[:4], host[4:8]
@@ -473,7 +476,7 @@ def _stage_one_sparse(est, x, k):
     est.ls = ls
     est.cov_func = compute_cov_func(curry, ls)
     logger.info("Using covariance function %s.", str(est.cov_func))
-    return xu, K, Lp, bool(ok), (piv, int(r)), (d, mu_t, ls_t)
+    return xu, K, Lp, bool(ok), (piv, int(r), L_piv, d_piv), (d, mu_t, ls_t)
 
 
 def maybe_fused_sparse_prepare(est):
@@ -549,7 +552,7 @@ def maybe_fused_nystroem_prepare(est):
     k = int(est.n_landmarks)
     if not NYSTROEM_EXACT_MAX < k < n:
         return False  # small m: exact-eigh lazy path (reference parity)
-    xu, K, Lp, ok, (piv, r), _ = _stage_one_sparse(est, x, k)
+    xu, K, Lp, ok, pivot, _ = _stage_one_sparse(est, x, k)
 
     if ok:
         xu_sel, Lp_sel = xu, Lp
@@ -558,7 +561,7 @@ def maybe_fused_nystroem_prepare(est):
         xu_sel = xu
         Lp_sel = safe_cholesky(K, jitter=est.jitter, max_tries=0)
     else:
-        piv_sel = _pruned_pivots(K, piv, r)
+        piv_sel = _pruned_pivots(K, *pivot)
         xu_sel = xu[piv_sel]
         est.n_landmarks = int(len(piv_sel))
         if est.check_rank is None:
@@ -656,7 +659,7 @@ def maybe_fused_dimensionality_prepare(est):
                     ls_factor=float(est.ls_factor), jitter=float(est.jitter))
     key = (curry, k, k_query, n_sub, float(est.ls_factor), float(est.jitter))
     with profiling.span("prepare.stage1", x.device):
-        distances, d, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
+        distances, d, mu_t, ls_t, xu, K, Lp, piv, L_piv, d_piv, packed = _run(
             "dimensionality", key, stage, (x,), (random_state, random_state), _captures(x, k))
     mu_dens, ls, ok, r = _read_host(packed)[:4]
 
@@ -670,7 +673,7 @@ def maybe_fused_dimensionality_prepare(est):
     est.landmarks = xu
     mu_dim = _device_scalar(float(est.mu_dim), x)
     _finish_sparse_factorization(
-        est, "dimensionality", x, xu, K, Lp, bool(ok), (piv, int(r)), (ls_t,),
+        est, "dimensionality", x, xu, K, Lp, bool(ok), (piv, int(r), L_piv, d_piv), (ls_t,),
         (est.nn_distances, d, mu_dim, mu_t), _dim_targets,
     )
     return True
@@ -744,7 +747,7 @@ def maybe_fused_time_prepare(est):
                     jitter=float(est.jitter))
     key = (curry, k, n_sub, n_times, do_normalize, float(est.ls_factor), float(est.jitter))
     with profiling.span("prepare.stage1", x.device):
-        nn, mu_t, ls_t, xu, K, Lp, piv, packed = _run(
+        nn, mu_t, ls_t, xu, K, Lp, piv, L_piv, d_piv, packed = _run(
             "time", key, stage, (x, group, counts, targets, d, ls_time_t),
             (random_state, random_state), _captures(x, k))
     host = _read_host(packed)
@@ -758,19 +761,22 @@ def maybe_fused_time_prepare(est):
     est.cov_func = compute_cov_func(curry, ls, float(est.ls_time))
     logger.info("Using covariance function %s.", str(est.cov_func))
     est.landmarks = xu
-    _finish_sparse_factorization(est, "time", x, xu, K, Lp, bool(ok), (piv, int(r)),
-                                 (ls_t, ls_time_t), (nn, d, mu_t), _density_target)
+    _finish_sparse_factorization(est, "time", x, xu, K, Lp, bool(ok),
+                                 (piv, int(r), L_piv, d_piv), (ls_t, ls_time_t), (nn, d, mu_t),
+                                 _density_target)
     return True
 
 
-def _pruned_pivots(K, piv, r):
+def _pruned_pivots(K, piv, r, L=None, d=None):
     """The pivoted subset of the landmarks: stage 1's pivots where their
     count r stopped below the cap (rounded down to a RANK_BUCKETS power of
     two, as select_stable_landmarks rounds), else select_stable_landmarks'
-    doubling selection on K."""
+    selection on K, which continues stage 1's steps where r reached the cap
+    and their L and residual diagonal d are given."""
     cap = min(K.shape[0], FUSED_PIVOT_CAP)
     if not 0 < r < cap:
-        return select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL)
+        prefix = (L, d, piv) if r == cap and L is not None else None
+        return select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL, prefix=prefix)
     buckets = [b for b in RANK_BUCKETS if b <= r]
     if buckets:
         r = buckets[-1]
@@ -788,7 +794,8 @@ def _finish_factorization(est, x, xu, K, Lp, ok, x64, run_ok, run_prune, pivot=N
     or prune to the pivoted subset and run one stage on it.  ``run_ok(xu,
     Lp) -> (L, z0)`` and ``run_prune(piv) -> (Lp, xu_sel, L, z0, ok)`` are
     the family's stage-2 graphs; ``pivot`` is (device pivots, r) from stage
-    1 (None, or r at the cap, takes select_stable_landmarks)."""
+    1, with its L and residual diagonal d after them where r may reach the
+    cap (:func:`_pruned_pivots`; None takes select_stable_landmarks)."""
     from .. import config
     from .base import SAMPLE_LANDMARK_RATIO
 

@@ -9,7 +9,10 @@ factor and the improved (sparse) Nyström factor, exact below
 :data:`NYSTROEM_EXACT_MAX` landmarks and Cholesky-whitened above.  Dense
 Cholesky, eigh, QR and triangular solves go to ``torch.linalg``
 (cuSOLVER/cuBLAS on the card); every float32 product runs in IEEE
-float32 (TF32 is off, :mod:`..config`).  The JAX package's row-chunked
+float32 (TF32 is off, :mod:`..config`).  The pivoted Cholesky's step is
+the hand-written kernel of :mod:`.hopper_kernels` on the card (its plain
+version on the CPU), replayed a chunk at a time from a CUDA graph.  The
+JAX package's row-chunked
 whitening (``_chunked_rows``/``TRSM_CHUNK_*``) is a workaround for the
 16 GB TPU v5e and is not ported.
 """
@@ -18,6 +21,7 @@ import logging
 
 import torch
 
+from . import hopper_kernels
 from ..utils import profiling
 from ..utils.util import DEFAULT_JITTER, add_diagonal, stabilize  # noqa: F401 (stabilize: re-exported)
 
@@ -28,6 +32,8 @@ PIVOT_REL_TOL = 1e-6
 RANK_BUCKETS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 # pivot steps between host checks of the stopping rule max(d) > thresh
 PIVOT_CHUNK = 64
+# the pivoted selection's first cap (the JAX package's), doubled while it binds
+PIVOT_FIRST_CAP = 1024
 # host-f64 rescue budget of the JAX package (host_cholesky_f64)
 F64_RESCUE_TRIES = 8
 
@@ -374,48 +380,123 @@ def _nystroem_select_and_project(H, rank):
     return H @ U
 
 
-def _pivoted_cholesky_masked(K, rel_tol, max_rank, active=None, stop_early=False):
-    """The steps of the greedy diagonally-pivoted partial Cholesky of a PSD
-    matrix, with the stopping rule (the largest residual diagonal at most
-    ``rel_tol`` times the largest diagonal) kept in a device-side flag that
-    masks every step after it fails, so such a step leaves the state
-    unchanged.  ``active`` (a 0-d bool tensor) is the flag's start: where
-    it is False no step runs.  With ``stop_early`` the flag is read on the
-    host once per :data:`PIVOT_CHUNK` steps and the loop ends with the
-    chunk in which it fell; without, all ``max_rank`` steps run and nothing
-    is read (the form a CUDA graph captures).  The pivot stays a
-    one-element tensor (``index_select``/``gather``): indexing with a 0-d
-    tensor would read it on the host at every step.  Returns (pivots
-    (max_rank,), the step count r as a 0-d tensor, L (m, max_rank))."""
+def _pivot_begin(state, rel_tol, active=None, prefix=None):
+    """Write into ``state`` (a :class:`~.hopper_kernels.PivotState` whose L
+    and pivots are zero) the greedy pivoted Cholesky's first step on its K:
+    step 0, d the diagonal of K, the stopping threshold ``rel_tol`` times
+    its largest entry and the flag ``active`` (a 0-d bool tensor, or
+    True); or, with ``prefix`` = (L, d, pivots) of a run on the same K
+    whose every step was active, the step after that run's, which then
+    continues as though it had not stopped.  Returns that step."""
+    diag = torch.diagonal(state.K)
+    state.vals[:1].copy_(rel_tol * torch.max(diag))
+    if prefix is None:
+        j0 = 0
+        state.d.copy_(diag)
+        active = True if active is None else active
+    else:
+        L0, d0, piv0 = prefix
+        j0 = L0.shape[1]
+        state.L[:, :j0].copy_(L0)
+        state.d.copy_(d0)
+        state.piv[:j0].copy_(piv0)
+        active = True
+    state.ints[:2].fill_(j0)  # the step, and the steps that ran
+    hopper_kernels.choose_pivot(state, active)
+    return j0
+
+
+class _ChunkGraph:
+    """:data:`PIVOT_CHUNK` launches of the step kernel on ``state`` (a
+    :class:`~.hopper_kernels.PivotState` on the card), captured as one CUDA
+    graph.  The kernel reads its step from the state, so each replay runs
+    the state's next chunk.  The capture runs nothing and reads nothing on
+    the host: it is made on a stream of its own, without the synchronise
+    and the cache release that ``torch.cuda.graph`` adds, and the kernel
+    allocates nothing."""
+
+    def __init__(self, state):
+        device = state.K.device
+        hopper_kernels.load_pivot_step(device)
+        self.graph = torch.cuda.CUDAGraph()
+        with hopper_kernels.captured_launches(), torch.cuda.stream(torch.cuda.Stream(device)):
+            self.graph.capture_begin()
+            try:
+                for j in range(PIVOT_CHUNK):
+                    hopper_kernels.pivot_step(state, j)
+            finally:
+                self.graph.capture_end()
+
+    def replay(self, steps):
+        """Run the state's next ``steps`` (at most the chunk) on the
+        current stream; launches past the state's width do nothing."""
+        self.graph.replay()
+        hopper_kernels.pivot_step.launches += PIVOT_CHUNK
+        profiling.count("pivot.kernel_steps", steps)
+
+
+def _pivoted_cholesky_masked(K, rel_tol, max_rank, active=None):
+    """The ``max_rank`` steps of the greedy diagonally-pivoted partial
+    Cholesky of a PSD matrix, with the stopping rule (the largest residual
+    diagonal at most ``rel_tol`` times the largest diagonal) kept in a
+    device-side flag that masks every step after it fails, so such a step
+    leaves the state unchanged.  ``active`` (a 0-d bool tensor) is the
+    flag's start: where it is False no step runs.  Nothing is read on the
+    host (the form a CUDA graph captures); on the card each step is one
+    launch of the step kernel.  Returns the
+    :class:`~.hopper_kernels.PivotState` after the steps: its pivots
+    (max_rank,), its step count r (``.r``, a 0-d tensor), L (m,
+    max_rank) and the residual diagonal d."""
+    state = hopper_kernels.PivotState(K, max_rank)
+    _pivot_begin(state, rel_tol, active=active)
+    for j in range(max_rank):
+        hopper_kernels.pivot_step(state, j)
+    return state
+
+
+def _pivot_selection(K, rel_tol, max_rank=None, prefix=None, plain=False):
+    """The greedy pivoted Cholesky of K, stopped by its rule: the step
+    count r is read on the host once per :data:`PIVOT_CHUNK` steps, and the
+    run ends with the chunk in which the rule fell, or at ``max_rank``
+    steps.  Without ``max_rank`` the factor's width starts at
+    min(m, :data:`PIVOT_FIRST_CAP`) and doubles, up to m, while the rule
+    holds at it, as the JAX package's cap does; but the wider state holds
+    the narrower one's columns
+    (:meth:`~.hopper_kernels.PivotState.widened`) and continues its steps,
+    so none runs twice.  ``prefix`` continues a run whose every step ran
+    (:func:`_pivot_begin`).  On the card each chunk is one replay of a CUDA
+    graph of the step kernel, captured on each width's state
+    (:class:`_ChunkGraph`); on the CPU, or with ``plain``, the plain steps
+    run (the card's tests compare the two).  Returns (the state, r)."""
     m = K.shape[0]
-    d = torch.diagonal(K).clone()
-    thresh = rel_tol * torch.max(d)
-    L = torch.zeros((m, max_rank), dtype=K.dtype, device=K.device)
-    piv = torch.zeros(max_rank, dtype=torch.int64, device=K.device)
-    if active is None:
-        active = torch.ones((), dtype=torch.bool, device=K.device)
-    r = torch.zeros((), dtype=torch.int64, device=K.device)
-    rows = torch.arange(m, device=K.device)
-    k = 0
-    while k < max_rank:
-        steps = min(PIVOT_CHUNK, max_rank - k)
-        for j in range(k, k + steps):
-            active = active & (torch.max(d) > thresh)
-            p = torch.argmax(d, dim=0, keepdim=True)
-            col = K.index_select(1, p)[:, 0] - L[:, :j] @ L.index_select(0, p)[0, :j]
-            l_col = torch.where(active, col / torch.sqrt(d.gather(0, p)), 0.0)
-            d_new = torch.clamp_min(d - l_col * l_col, 0.0)
-            d = torch.where(active & (rows != p), d_new, torch.where(active, 0.0, d))
-            L[:, j] = l_col
-            piv[j : j + 1] = torch.where(active, p, 0)
-            r = r + active.to(torch.int64)
-        k += steps
-        if stop_early:
+    limit = m if max_rank is None else int(max_rank)
+    width = min(m, PIVOT_FIRST_CAP) if max_rank is None else limit
+    j0 = 0 if prefix is None else prefix[0].shape[1]
+    while width <= j0 and width < limit:
+        width = min(2 * width, limit)
+    graphed = K.device.type == "cuda" and not plain
+    state, graph = hopper_kernels.PivotState(K, width), None
+    k = r = _pivot_begin(state, rel_tol, prefix=prefix)
+    while True:
+        while k < width:
+            steps = min(PIVOT_CHUNK, width - k)
+            if graphed:
+                if graph is None:
+                    graph = _ChunkGraph(state)
+                graph.replay(steps)
+            else:
+                for j in range(k, k + steps):
+                    hopper_kernels.pivot_step_reference(state, j)
+            k += steps
             profiling.count("pivot.steps", steps)
             profiling.count("host_reads")
-            if int(r) < k:
-                break
-    return piv, r, L
+            r = int(state.r)
+            if r < k:
+                return state, r
+        if width >= limit:
+            return state, r
+        width = min(2 * width, limit)
+        state, graph = state.widened(width), None
 
 
 def _pivoted_cholesky(K, rel_tol, max_rank):
@@ -425,33 +506,29 @@ def _pivoted_cholesky(K, rel_tol, max_rank):
     ``while_loop``: it stops after ``max_rank`` steps or once the largest
     residual diagonal is at most ``rel_tol`` times the largest diagonal.
     The stopping rule is read on the host once per :data:`PIVOT_CHUNK`
-    steps (:func:`_pivoted_cholesky_masked`).
+    steps (:func:`_pivot_selection`).
     """
-    piv, r, L = _pivoted_cholesky_masked(K, rel_tol, max_rank, stop_early=True)
-    profiling.count("host_reads")
-    return piv, int(r), L
+    state, r = _pivot_selection(K, rel_tol, max_rank)
+    return state.piv, r, state.L.contiguous()
 
 
-def select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL, max_rank=None, quantize=True):
+def select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL, max_rank=None, quantize=True, prefix=None):
     """Greedy landmark subset whose kernel submatrix is f32-factorizable.
 
-    The pivoted partial Cholesky runs with a cap of min(m, 1024) that
-    doubles while the cap binds; ``quantize=True`` rounds the selected
-    count DOWN to a :data:`RANK_BUCKETS` power of two, as the JAX package
-    does (it changes which landmarks are kept).  Returns the pivot indices
-    as a tensor on K's device.
+    The pivoted partial Cholesky runs until its stopping rule, or
+    ``max_rank`` steps; without ``max_rank`` its cap of min(m, 1024)
+    doubles while it binds, as the JAX package's does, and each step
+    depends only on the steps before it, so the wider cap continues the
+    narrower one's steps (:func:`_pivot_selection`).  ``prefix`` = (L, d,
+    pivots) continues a run of the first steps on K whose every step ran
+    (stage 1's, ``models/fused.py``).  ``quantize=True`` rounds
+    the selected count DOWN to a :data:`RANK_BUCKETS` power of two, as the
+    JAX package does (it changes which landmarks are kept).  Returns the
+    pivot indices as a tensor on K's device.
     """
     m = K.shape[0]
     with profiling.span("prepare.pivots"):
-        if max_rank is None:
-            cap = min(m, 1024)
-            while True:
-                piv, r, _ = _pivoted_cholesky(K, rel_tol, cap)
-                if r < cap or cap >= m:
-                    break
-                cap = min(2 * cap, m)
-        else:
-            piv, r, _ = _pivoted_cholesky(K, rel_tol, int(max_rank))
+        state, r = _pivot_selection(K, rel_tol, max_rank, prefix)
     if quantize:
         buckets = [b for b in RANK_BUCKETS if b <= r]
         if buckets:
@@ -462,7 +539,7 @@ def select_stable_landmarks(K, rel_tol=PIVOT_REL_TOL, max_rank=None, quantize=Tr
         m,
         rel_tol,
     )
-    return piv[:r]
+    return state.piv[:r]
 
 
 def solve_psd_from_cholesky(L, b):

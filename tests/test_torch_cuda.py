@@ -10,20 +10,24 @@ import datetime
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import mellon_tpu_torch
 from mellon_tpu_torch.inference.diagnostics import summarize
 from mellon_tpu_torch.inference.losses import BatchedPotential, make_density_value_and_grad_batch
 from mellon_tpu_torch.inference.mcmc import run_mcmc
 from mellon_tpu_torch.inference.samplers import Draws, hmc_init, hmc_kernel, nuts_kernel
+from mellon_tpu_torch.ops import hopper_kernels, linalg
 from mellon_tpu_torch.ops.hopper_kernels import (
-    BUILD_DIR, NVCC_FLAGS, _nvcc, matern52_gram, matern52_gram_reference,
+    BUILD_DIR, NVCC_FLAGS, _nvcc, matern52_gram, matern52_gram_reference, pivot_step,
 )
+from mellon_tpu_torch.utils import profiling
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -888,6 +892,136 @@ def test_matern52_kernel_reads_a_device_length_scale(cuda, dtype):
     ls = torch.tensor(3.1, dtype=torch.float64, device=cuda)
     assert torch.equal(matern52_gram(x, y, ls), matern52_gram(x, y, 3.1))
     assert torch.equal(matern52_gram(x, x, ls), matern52_gram(x, x, 3.1))
+
+
+# ---------------------------------------------------------------------------
+# the pivoted partial Cholesky's step kernel (csrc/pivot_step.cu)
+# ---------------------------------------------------------------------------
+
+PIVOT_FIELDS = ("L", "d", "piv", "ints", "vals")
+
+
+@pytest.fixture(scope="module")
+def tutorial_landmarks():
+    """The tutorial fit's 5,000 k-means landmarks of the 8,627 bench cells
+    (float32) and its length scale."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU route)")
+    from mellon_tpu_torch.parameters import compute_landmarks, compute_ls, compute_nn_distances
+
+    x = torch.as_tensor(np.load(ROOT / "benchdata" / "ld_ref_8627x20_f64.npz")["x"],
+                        dtype=torch.float32, device="cuda")
+    return compute_landmarks(x, n_landmarks=5000), float(compute_ls(compute_nn_distances(x)))
+
+
+def _landmark_gram(landmarks, m, dtype):
+    """The Matern-5/2 gram of the first m tutorial landmarks."""
+    xu, ls = landmarks
+    xu = xu[:m].to(dtype).contiguous()
+    return matern52_gram(xu, xu, ls)
+
+
+@pytest.mark.parametrize("m", [400, 1100, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pivot_kernel_matches_the_plain_step(tutorial_landmarks, m, dtype):
+    """The selection through the step kernel (the chunk graphs) against the
+    plain step on the card, on the tutorial's landmark gram and its
+    leading blocks, held to ``chip_smoke.compare_pivot_selections``'
+    criteria: each run's factor on its kept pivots (its count rounded down
+    to RANK_BUCKETS) within 1e-5 (float32) or 1e-12 (float64) of the
+    float64 Cholesky of K on them, or within 1.25 times the plain step's
+    gap where that is larger, and their order keeping the greedy rule in
+    float64 (``pivot_gap``) to 2e-6, or to twice the plain step's.  In
+    float64 the two select the same pivots and count.  In float32 they sum
+    in another order, and past ~150 steps the rounding of d (~1e-4 of the
+    residual variances) decides near-ties, where the pivots part: the two
+    then keep the same number of landmarks, 95% of them the same."""
+    chip_smoke.compare_pivot_selections(_landmark_gram(tutorial_landmarks, m, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pivot_chunk_graph_replays_the_eager_chunk_bitwise(tutorial_landmarks, dtype):
+    """Three chunks replayed by the captured graph against the same chunks
+    launched one step at a time: every buffer of the state bit for bit."""
+    K = _landmark_gram(tutorial_landmarks, 1100, dtype)
+    replayed, eager = hopper_kernels.PivotState(K, 1100), hopper_kernels.PivotState(K, 1100)
+    for state in (replayed, eager):
+        linalg._pivot_begin(state, linalg.PIVOT_REL_TOL)
+    graph = linalg._ChunkGraph(replayed)
+    chunk = linalg.PIVOT_CHUNK
+    for c in range(3):
+        graph.replay(chunk)
+        for j in range(c * chunk, (c + 1) * chunk):
+            pivot_step(eager, j)
+        torch.cuda.synchronize()
+        for name in PIVOT_FIELDS:
+            a, b = getattr(replayed, name), getattr(eager, name)
+            bits = {torch.float32: torch.int32, torch.float64: torch.int64}.get(a.dtype, a.dtype)
+            assert torch.equal(a.view(bits), b.view(bits)), (c, name)
+    assert int(replayed.ints[0]) == 3 * chunk
+
+
+def test_pivot_step_counts_every_step(tutorial_landmarks):
+    """``pivot_step.launches`` counts each eager launch and each replayed
+    chunk's launches; the ``pivot.kernel_steps`` counter counts the steps:
+    the masked run's and the selection's (``pivot.steps``)."""
+    K = _landmark_gram(tutorial_landmarks, 1100, torch.float32)
+    before = pivot_step.launches
+    profiling.start()
+    try:
+        linalg._pivoted_cholesky_masked(K, linalg.PIVOT_REL_TOL, 1024)
+        _, r = linalg._pivot_selection(K, linalg.PIVOT_REL_TOL)
+    finally:
+        profiling.stop()
+    counters = profiling.take()["counters"]
+    chunks = counters["host_reads"]
+    assert chunks == -(-counters["pivot.steps"] // linalg.PIVOT_CHUNK) and r > 0
+    assert pivot_step.launches - before == 1024 + chunks * linalg.PIVOT_CHUNK
+    assert counters["pivot.kernel_steps"] == 1024 + counters["pivot.steps"]
+
+
+def test_pivot_chunk_reads_the_host_once(tutorial_landmarks):
+    """Under ``torch.cuda.set_sync_debug_mode(1)`` a warm selection
+    synchronises once per chunk, the read of its step count: its graphs'
+    captures, one at each width, read nothing."""
+    K = _landmark_gram(tutorial_landmarks, 5000, torch.float32)
+    linalg._pivot_selection(K, linalg.PIVOT_REL_TOL)
+    torch.cuda.synchronize()
+    profiling.start()
+    torch.cuda.set_sync_debug_mode(1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, r = linalg._pivot_selection(K, linalg.PIVOT_REL_TOL)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.stop()
+    chunks = profiling.take()["counters"]["host_reads"]
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert chunks == r // linalg.PIVOT_CHUNK + 1 and len(syncs) == chunks, [
+        str(w.message) for w in syncs[:3]]
+
+
+def test_fused_prepare_continues_stage_ones_pivots(fused_graphs):
+    """The tutorial's float32 prepare, replayed: stage 1's graph runs its
+    1,024 kernel steps, the selection continues from them (its steps and
+    the kernel's add up, each counted once), and the landmarks it keeps
+    are the lazy chain's, which selects from scratch, bit for bit."""
+    x = np.asarray(np.load(ROOT / "benchdata" / "ld_ref_8627x20_f64.npz")["x"], np.float32)
+    _fused_prepare(x, True, torch.float32)
+    before = pivot_step.launches
+    profiling.start()
+    try:
+        got = _fused_prepare(x, True, torch.float32)
+    finally:
+        profiling.stop()
+    counters = profiling.take()["counters"]
+    steps = counters["pivot.steps"]
+    cap = fused_graphs.FUSED_PIVOT_CAP
+    assert steps > 0 and counters["pivot.kernel_steps"] == cap + steps
+    assert pivot_step.launches - before == cap + -(-steps // linalg.PIVOT_CHUNK) * linalg.PIVOT_CHUNK
+    want = _fused_prepare(x, False, torch.float32)
+    _assert_same_bits(got, want, ("landmarks", "n_landmarks"))
 
 
 if __name__ == "__main__":

@@ -202,14 +202,14 @@ def test_pivot_branch_matches_jax_f64():
     _, K = _singular_f64_gram()
     jitter = 1e-300
     Lj, okj, pj, rj = jfused._chol_attempt_with_pivot(jnp.asarray(K), jitter)
-    Lt, okt, pt, rt = fused._chol_attempt_with_pivot(t64(K), jitter)
+    Lt, okt, pt, rt, *_ = fused._chol_attempt_with_pivot(t64(K), jitter)
     assert not bool(okj) and not bool(okt)
     assert int(rt) == int(rj) and 0 < int(rt) < K.shape[0]
     np.testing.assert_array_equal(to_np(pt)[: int(rt)], np.asarray(pj)[: int(rj)])
     # where the attempt factors, no pivot step runs
     _, K_ok = _singular_f64_gram(seed=3)
     K_ok = K_ok[:30, :30]
-    _, okt, pt, rt = fused._chol_attempt_with_pivot(t64(K_ok), 1e-6)
+    _, okt, pt, rt, *_ = fused._chol_attempt_with_pivot(t64(K_ok), 1e-6)
     assert bool(okt) and int(rt) == 0 and not bool(pt.any())
 
 

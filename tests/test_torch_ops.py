@@ -17,7 +17,7 @@ from mellon_tpu.ops.kernels import Matern52 as JMatern52
 from mellon_tpu.utils import validation as jvalidation
 from mellon_tpu_torch.ops import cluster, linalg, neighbors
 from mellon_tpu_torch.ops.kernels import Matern52
-from mellon_tpu_torch.utils import validation
+from mellon_tpu_torch.utils import profiling, validation
 from torch.utils._python_dispatch import TorchDispatchMode
 
 
@@ -114,6 +114,87 @@ def test_pivoted_cholesky_matches_jax(max_rank, monkeypatch):
     st = linalg.select_stable_landmarks(t64(K), max_rank=max_rank)
     assert 64 <= rt and len(st) == max(b for b in linalg.RANK_BUCKETS if b <= rt)
     np.testing.assert_array_equal(to_np(st), np.asarray(sj))
+
+
+def _ranked_gram(m, rank, dtype, seed=0):
+    """A PSD m x m gram of rank ``rank`` (A Aᵀ), or of full rank (I plus
+    a tenth of one) where ``rank`` is m."""
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.randn((m, rank), dtype=torch.float64, generator=gen) / rank**0.5
+    K = A @ A.T if rank < m else torch.eye(m, dtype=torch.float64) + 0.1 * A @ A.T / m
+    return K.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m, rank, binds", [(1100, 1100, 1), (2100, 1800, 1), (2100, 2100, 2)])
+def test_continued_selection_equals_a_run_from_scratch(m, rank, binds, dtype):
+    """The selection runs each step once and continues where the JAX
+    package's cap of 1,024 doubles (binding once, or twice at 2,100 full
+    rank): its pivots, count and RANK_BUCKETS bucket are those of one run
+    from scratch to the final cap, and its steps number the count's chunks
+    only."""
+    K = _ranked_gram(m, rank, dtype)
+    profiling.start()
+    try:
+        piv = linalg.select_stable_landmarks(K, quantize=False)
+    finally:
+        profiling.stop()
+    steps = profiling.take()["counters"]["pivot.steps"]
+    r = len(piv)
+    caps = [c for c in (1024, 2048) if c <= r] + [m]
+    cap = next(c for c in (1024, 2048, m) if r < c or c == m)
+    assert len(caps) - 1 == binds and abs(r - rank) <= 0.05 * rank
+    pt, rt, _ = linalg._pivoted_cholesky(K, linalg.PIVOT_REL_TOL, cap)
+    assert rt == r and torch.equal(piv, pt[:r])
+    assert steps == min(m, (r // linalg.PIVOT_CHUNK + 1) * linalg.PIVOT_CHUNK)
+    bucket = max(b for b in linalg.RANK_BUCKETS if b <= r)
+    assert torch.equal(linalg.select_stable_landmarks(K), pt[:bucket])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [1000, 1100])
+def test_pruned_pivots_continue_stage_one(m, dtype, monkeypatch):
+    """Where stage 1's Cholesky attempt fails and its in-graph pivots reach
+    their cap, ``_pruned_pivots`` continues from their L and residual
+    diagonal: the landmarks ``select_stable_landmarks`` keeps from scratch,
+    with only the steps past the cap run (none where the cap is m)."""
+    from mellon_tpu_torch.models import fused
+
+    K = _ranked_gram(m, m, dtype, seed=1)
+    monkeypatch.setattr(fused, "_jittered_cholesky",
+                        lambda K, jitter: (K * torch.nan, torch.tensor(False)))
+    _, ok, piv, r, L, d = fused._chol_attempt_with_pivot(K, 1e-6)
+    cap = min(m, fused.FUSED_PIVOT_CAP)
+    assert not bool(ok) and int(r) == cap and L.shape == (m, cap)
+    profiling.start()
+    try:
+        got = fused._pruned_pivots(K, piv, int(r), L, d)
+    finally:
+        profiling.stop()
+    assert profiling.take()["counters"].get("pivot.steps", 0) == m - cap
+    assert torch.equal(got, linalg.select_stable_landmarks(K))
+
+
+@pytest.mark.parametrize("m, rank", [(1100, 1100), (2100, 1800), (2100, 2100)])
+def test_continued_selection_matches_jax(m, rank, monkeypatch):
+    """Where the JAX package's cap of 1,024 binds (once at 1,100 and at
+    2,100 of rank 1,800, twice at 2,100 of full rank) it runs the
+    selection again from step 0 at each doubled cap; the port continues
+    it, from scratch and from stage 1's state at its cap
+    (``_pruned_pivots``).  On the same float64 K both keep the same
+    pivots, count and RANK_BUCKETS round-down."""
+    from mellon_tpu_torch.models import fused
+
+    K = _ranked_gram(m, rank, torch.float64)
+    sj = np.asarray(jlinalg.select_stable_landmarks(jnp.asarray(to_np(K)), quantize=False))
+    assert len(sj) == rank
+    np.testing.assert_array_equal(to_np(linalg.select_stable_landmarks(K, quantize=False)), sj)
+    monkeypatch.setattr(fused, "_jittered_cholesky",
+                        lambda K, jitter: (K * torch.nan, torch.tensor(False)))
+    _, ok, piv, r, L, d = fused._chol_attempt_with_pivot(K, 1e-6)
+    assert not bool(ok) and int(r) == fused.FUSED_PIVOT_CAP
+    bucket = max(b for b in linalg.RANK_BUCKETS if b <= rank)
+    np.testing.assert_array_equal(to_np(fused._pruned_pivots(K, piv, int(r), L, d)), sj[:bucket])
 
 
 def test_safe_cholesky_flag_semantics_match_jax():

@@ -233,28 +233,21 @@ def test_tracing_changes_no_output(fitted, work):
 @pytest.mark.parametrize("m, rank", [(300, 100), (1100, 1100)])
 def test_pivot_steps_count_the_selections_steps(m, rank):
     """``pivot.steps`` adds the steps of each chunk the stopping rule's host
-    check lets run: on a rank-100 kernel the first chunk past the rank;
-    on a full-rank one of 1,100 landmarks the cap of 1,024 binds and
-    doubles to 1,100.  One host read per chunk and one per pass."""
+    check lets run: on a rank-100 kernel the first chunk past the rank; on
+    a full-rank one of 1,100 landmarks each of the 1,100 steps once (the
+    JAX package's cap of 1,024 doubles to 1,100, and its steps are
+    continued, not run again), the last chunk short.  One host read per
+    chunk, which gives the count; on the CPU no step is the kernel's."""
     gen = torch.Generator().manual_seed(m)
     A = torch.randn((m, rank), dtype=torch.float64, generator=gen) / rank**0.5
     K = A @ A.T if rank < m else torch.eye(m, dtype=torch.float64) + 0.1 * A @ A.T / m
     piv, record = _traced(lambda: linalg.select_stable_landmarks(K, quantize=False))
-    steps, reads, cap = 0, 0, min(m, 1024)
-    while True:
-        _, r, _ = linalg._pivoted_cholesky_masked(K, linalg.PIVOT_REL_TOL, cap)
-        r = int(r)
-        chunks = -(-min(cap, (r // linalg.PIVOT_CHUNK + 1) * linalg.PIVOT_CHUNK)
-                   // linalg.PIVOT_CHUNK)
-        steps += min(cap, chunks * linalg.PIVOT_CHUNK)
-        reads += chunks + 1
-        if r < cap or cap >= m:
-            break
-        cap = min(2 * cap, m)
-    assert len(piv) == r == rank
-    assert record["counters"] == {"pivot.steps": steps, "host_reads": reads}
+    chunks = min(-(-m // linalg.PIVOT_CHUNK), rank // linalg.PIVOT_CHUNK + 1)
+    steps = min(m, chunks * linalg.PIVOT_CHUNK)
+    assert len(piv) == rank
+    assert record["counters"] == {"pivot.steps": steps, "host_reads": chunks}
     assert _names(record) == {"prepare.pivots": 1}
-    assert steps == (128 if rank < m else 1024 + 1100)
+    assert steps == (128 if rank < m else 1100)
 
 
 @pytest.mark.parametrize("precision", [None, "bf16"])
