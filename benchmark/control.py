@@ -13,7 +13,10 @@ plain reference computed at the precision below the configuration's
 ``reference.density.CONTROL``), put in the program's place and judged by
 the same check; it has to come out as not correct.  With ``--fault`` the
 fault of that name in ``benchmark/faults.py`` is planted in the program
-first, and the program's verdict has to be false."""
+first, and the program's verdict has to be false.  The cell runs as its
+``chips`` ask (``harness.run``: on several devices as its ranks, each
+with the fault planted); a seed whose run fails prints its exit code
+instead."""
 
 import argparse
 import json
@@ -36,13 +39,16 @@ def main(argv=None):
     parser.add_argument("--fault", help="a fault of benchmark/faults.py to plant")
     args = parser.parse_args(argv)
 
-    from benchmark import faults, harness
+    from benchmark import harness
 
-    if args.fault:
-        getattr(faults, args.fault)(setattr)
     for seed in args.seeds:
         t0 = time.perf_counter()
-        result = harness.run_cell(args.workload, seed, args.seconds, 0, control=not args.fault)
+        code, result = harness.run(args.workload, seed, args.seconds, 0, control=not args.fault,
+                                   fault=args.fault)
+        if result is None:
+            print(json.dumps({"seed": seed, "fault": args.fault, "exit": code,
+                              "seconds": time.perf_counter() - t0}), flush=True)
+            continue
         line = {"seed": seed, "fault": args.fault, "correct": result["correct"],
                 "checks": result["checks"], "metrics": result["metrics"],
                 "seconds": time.perf_counter() - t0}

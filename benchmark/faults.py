@@ -143,3 +143,62 @@ def nuts_answer_altered(patch):
         return res._replace(samples=samples)
 
     _resume_fault(patch, altered)
+
+
+def mesh_without_the_cells_reduce(patch):
+    """The window's sampler (``resume_mcmc``) sums the cell-sharded
+    potential over this rank's cells alone: the ``all_reduce`` over the
+    mesh's cells axis left out, so each rank samples from its own block
+    of the cells."""
+    from mellon_tpu_torch.inference import losses, mcmc
+
+    reduce, resume = losses._reduce_likelihood, mcmc.resume_mcmc
+    sampling = []
+
+    def local(likelihood, grad_likelihood, group):
+        if sampling:
+            return likelihood, grad_likelihood
+        return reduce(likelihood, grad_likelihood, group)
+
+    def resumed(*args, **kwargs):
+        sampling.append(True)
+        try:
+            return resume(*args, **kwargs)
+        finally:
+            sampling.pop()
+
+    patch(losses, "_reduce_likelihood", local)
+    patch(mcmc, "resume_mcmc", resumed)
+
+
+def mesh_without_the_chains_gather(patch):
+    """The samplers' results are not gathered over the mesh's chains axis:
+    each rank keeps its own block of the chains in every chain group's
+    place, so rank 0 holds its own group's draws twice and the other
+    group's not at all (half of the chains left out, the rest counted
+    double)."""
+    from mellon_tpu_torch.inference import mcmc
+
+    fields = ("samples", "potential", "accept_prob", "diverging", "num_leapfrog")
+
+    def kept(result, sharding):
+        return result._replace(**{f: torch.cat([getattr(result, f)] * sharding.size)
+                                  for f in fields})
+
+    patch(mcmc, "_gather_result", kept)
+
+
+def mesh_chain_group_frozen(patch):
+    """The window's sampler returns the last chain group's chains at the
+    state they started from (their potential the block's first), the
+    other group's as sampled: a chain group that never moves, which the
+    pooled draws' moments barely show."""
+    def frozen(res, args):
+        rest = res.samples.shape[0] // 2
+        z0 = torch.atleast_2d(args[1])
+        samples, potential = res.samples.clone(), res.potential.clone()
+        samples[rest:] = z0[rest:, None, :]
+        potential[rest:] = potential[rest:, :1]
+        return res._replace(samples=samples, potential=potential)
+
+    _resume_fault(patch, frozen)

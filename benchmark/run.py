@@ -11,10 +11,20 @@ compared with its limit); the last lines of standard error repeat the
 checks.  Exits with 2, and prints no result, without enough CUDA devices,
 or where the process holds JAX or the JAX package once the window has
 closed.
+
+A cell whose ``chips`` is 1 runs in this process, on ``cuda``.  A cell
+whose ``chips`` is N > 1 runs as N rank processes in one NCCL process
+group, rank r on ``cuda:<r>`` (``harness.run``, ``rank.py``), and this
+process prints rank 0's line as the one result line.  Its ``device``
+reports ``count``, the distinct devices the ranks ran on, the fullest
+device's memory peak, and ``per_device``, each rank's index, peak and
+(traced) busy and window seconds; where ``count`` is below N, or a rank
+holds JAX or the JAX package, no line is printed and the run exits with
+2.  A rank that fails ends the run: the others are killed, and the run
+exits with the failed rank's code.
 """
 
 import argparse
-import json
 import os
 import sys
 import time
@@ -42,23 +52,16 @@ def main(argv=None):
     from benchmark import harness
 
     spec = harness.load_spec()
-    cell = harness.find(spec["workloads"], args.workload, "cell")
-    if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
-        print(f"{args.workload} needs {cell['chips']} CUDA device(s); "
+    chips = int(harness.find(spec["workloads"], args.workload, "cell")["chips"])
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"{args.workload} needs {chips} CUDA device(s), "
+              f"{'one rank process on each' if chips > 1 else 'in this process'}; "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} available",
               file=sys.stderr)
         return 2
-    result = harness.run_cell(args.workload, args.seed, args.seconds, args.trace, "cuda",
-                              spec=spec, t_start=T_START)
-    found = harness.forbidden_modules()
-    if found:
-        print(f"the process holds {', '.join(found)} after the window", file=sys.stderr)
-        return 2
-    for name, held in result["checks"].items():
-        print(f"check {name} {held['value']!r} limit {held['limit']!r}", file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(result), flush=True)
-    return 0
+    code, result = harness.run(args.workload, args.seed, args.seconds, args.trace, spec=spec,
+                               t_start=T_START)
+    return harness.emit(result, chips) if result is not None else code
 
 
 if __name__ == "__main__":

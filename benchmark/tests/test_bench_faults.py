@@ -3,9 +3,11 @@ driven on the CPU at a tiny size (the check for a card skipped) with the
 timed path broken underneath (``benchmark/faults.py``) must read
 ``correct`` false, once for each fault the cell can have; and the
 control, the reference at TF32 in the program's place, must fail its
-limits.  The cells run on one chip, so no exchange between chips can be
-left out."""
+limits.  The cell on a mesh (atlas.nuts4) runs as four gloo ranks on
+the CPU, each with the fault planted: the exchange between them, the
+cells axis's ``all_reduce`` or the chains axis's gather, left out."""
 
+import json
 import math
 import types
 
@@ -67,6 +69,47 @@ def test_the_control_fails_its_limits(cpu_program, name):
     crashes, or reads NaN, has failed), is not correct."""
     result = run(name, control=True)
     assert result["control"]["correct"] is False, result["control"]
+
+
+MESH_SEED = 2**31 + 99
+
+
+def _mesh_line(tmp_path, fault):
+    """Rank 0's line of one launch of atlas.nuts4's four gloo ranks at the
+    tiny size, with ``fault`` planted in every rank (None: sound)."""
+    out_path = tmp_path / f"{fault}.out"
+    with open(out_path, "w") as out, pytest.MonkeyPatch.context() as mp:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        code = harness.run_ranks(
+            "atlas.nuts4", MESH_SEED, 2.0, 0, "cpu", "gloo", 4, stdout=out, timeout=240,
+            options=["--config-overrides", json.dumps(TINY_CONFIG), "--traffic-overrides",
+                     json.dumps(TINY_TRAFFIC), *(["--fault", fault] if fault else [])])
+    assert code == 0
+    return json.loads(out_path.read_text().strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def sound_mesh_line(tmp_path_factory):
+    return _mesh_line(tmp_path_factory.mktemp("sound"), None)
+
+
+@pytest.mark.parametrize("fault", ["mesh_without_the_cells_reduce",
+                                   "mesh_without_the_chains_gather", "mesh_chain_group_frozen"])
+def test_the_mesh_without_an_exchange_is_not_correct(tmp_path, sound_mesh_line, fault):
+    """Each rank samples from its own half of the cells, rank 0 holds its
+    own chain group's draws in the other group's place, or a chain group
+    never moves: ``correct`` false, by a number that the same seed's
+    sound run holds, and that sound run reads true."""
+    held, result = sound_mesh_line, _mesh_line(tmp_path, fault)
+    assert held["correct"] is True, held["checks"]
+    assert result["correct"] is False
+    failed = [k for k, v in result["checks"].items() if not v["value"] <= v["limit"]]
+    assert any(held["checks"][k]["value"] <= held["checks"][k]["limit"] for k in failed)
+    if fault == "mesh_without_the_chains_gather":
+        assert failed == ["chains_mismatch"]
+        assert result["checks"]["chains_mismatch"]["value"] == TINY_TRAFFIC["chains"] // 2
+    if fault == "mesh_chain_group_frozen":
+        assert result["checks"]["frozen_chains"]["value"] == TINY_TRAFFIC["chains"] // 2
 
 
 @pytest.mark.parametrize("value, correct", [(0.5, True), (2.0, False), (math.nan, False),

@@ -1,7 +1,10 @@
 """The harness against the contract: every name resolves to its file, the
 result line has the contract's keys, a configuration, traffic mix or
 metric is added by files and entries alone, and nothing imports JAX or
-the JAX package."""
+the JAX package.  A cell on several devices runs as one rank process per
+device (here four gloo ranks on the CPU): rank 0 alone prints the line,
+whose devices are counted from the ranks', and a rank that fails ends
+the launch."""
 
 import ast
 import json
@@ -9,6 +12,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -18,6 +22,20 @@ from benchmark.tests.conftest import ROOT, TINY_CONFIG, TINY_TRAFFIC
 
 BENCH = os.path.join(ROOT, "benchmark")
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
+# the time limit of one launch of a tiny cell's four CPU ranks
+RANKS_TIMEOUT_S = 240
+TINY_OPTIONS = ["--config-overrides", json.dumps(TINY_CONFIG),
+                "--traffic-overrides", json.dumps(TINY_TRAFFIC)]
+
+
+def run_tiny_ranks(tmp_path, name="atlas.nuts4", trace=0, options=()):
+    """(exit code, rank 0's standard output) of one launch of the cell's
+    four ranks on the CPU at the tiny size."""
+    out_path = tmp_path / f"rank0_{trace}.out"
+    with open(out_path, "w") as out:
+        code = harness.run_ranks(name, 2**31 + 7, 2.0, trace, "cpu", "gloo", 4, stdout=out,
+                                 options=[*TINY_OPTIONS, *options], timeout=RANKS_TIMEOUT_S)
+    return code, out_path.read_text()
 
 
 def test_every_name_resolves_to_its_file():
@@ -59,6 +77,176 @@ def test_result_line_has_the_contract_keys(cpu_program, name, trace):
     json.dumps(result)
 
 
+@pytest.mark.parametrize("trace", [0, 1])
+def test_a_mesh_cell_runs_one_rank_process_per_device(tmp_path, capfd, monkeypatch, trace):
+    """atlas.nuts4 as four gloo ranks on the CPU: one line, rank 0's, with
+    the contract's keys and every rank's device; the others print to
+    standard error alone."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    code, out = run_tiny_ranks(tmp_path, trace=trace)
+    assert code == 0, capfd.readouterr().err[-3000:]
+    lines = out.strip().splitlines()
+    assert len(lines) == 1 and capfd.readouterr().out == ""
+    result = json.loads(lines[0])
+    assert list(result)[:5] == KEYS and list(result)[-1] == "checks"
+    device = result["device"]
+    assert device["count"] == 1 and device["platform"] == "cpu"  # four ranks, one CPU
+    assert len(device["per_device"]) == 4
+    spec = harness.load_spec()
+    _, layer = harness.cell_metrics(spec, harness.find(spec["workloads"], "atlas.nuts4", "cell"))
+    if trace:
+        assert {"nuts.ess_per_draw.atlas4", "nuts.host_reads_per_leaf.atlas4",
+                "nuts_leaf_mfu.atlas4"} <= set(result["metrics"]) <= {m["name"] for m in layer}
+    else:
+        assert set(result["metrics"]) == {"ess_per_s.atlas4", "setup_s"}
+        assert result["correct"] is True, result["checks"]
+
+
+def test_a_one_device_line_keeps_its_device_keys(cpu_program):
+    result = harness.run_cell("tutorial.predict", 2**31 + 7, 1.0, 0, "cpu",
+                              config_overrides=TINY_CONFIG, traffic_overrides=TINY_TRAFFIC)
+    assert list(result["device"]) == ["platform", "kind", "count", "memory_peak_bytes"]
+    assert result["device"]["count"] == 1
+
+
+H100 = "NVIDIA H100 80GB HBM3"
+
+
+def _fact(index, peak, busy=None, kind=H100):
+    fact = {"platform": "gpu", "index": index, "kind": kind, "memory_peak_bytes": peak}
+    if busy is not None:
+        fact.update(busy_s=busy, window_s=1.0)
+    return fact
+
+
+def test_the_device_is_counted_from_the_ranks_facts(capsys):
+    """Four ranks on four cards: count 4, the fullest card's peak, the
+    mean busy share, each rank's entry; two ranks on one card count 1,
+    and a cell that asks for 2 then prints no line; ranks on cards of
+    two kinds are refused."""
+    info = harness.device_facts([_fact(i, 10 + i, busy=0.1 * i) for i in range(4)])
+    assert (info["count"], info["memory_peak_bytes"], info["kind"]) == (4, 13, H100)
+    assert info["busy_s"] == pytest.approx(0.15) and info["window_s"] == 1.0
+    assert [d["index"] for d in info["per_device"]] == [0, 1, 2, 3]
+    shared = harness.device_facts([_fact(0, 5), _fact(0, 7)])
+    assert shared["count"] == 1 and shared["memory_peak_bytes"] == 7
+    result = {"correct": True, "attempted": 1, "failed": 0, "metrics": {}, "device": shared,
+              "checks": {}}
+    assert harness.emit(result, 2) == 2
+    assert capsys.readouterr().out == ""
+    assert harness.emit(dict(result, device=harness.device_facts([_fact(0, 5), _fact(1, 7)])),
+                        2) == 0
+    assert json.loads(capsys.readouterr().out)["device"]["count"] == 2
+    with pytest.raises(ValueError):
+        harness.device_facts([_fact(0, 5), _fact(1, 5, kind="NVIDIA A100")])
+
+
+FAILING_DRIVER = '''"""Rank 1 fails in set-up; the other ranks wait for it in a collective."""
+import os
+
+import torch.distributed as dist
+
+
+def setup(ctx):
+    with open(os.path.join(os.environ["RANK_PIDS"], f"{ctx.rank}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    if ctx.rank == 1:
+        raise RuntimeError("a rank that fails")
+    dist.barrier()
+'''
+
+
+def test_a_failing_rank_ends_the_launch(tmp_path):
+    """Rank 1 raises while the others wait in a barrier: the launch exits
+    non-zero at once, far inside the process group's timeout, and leaves
+    no rank behind."""
+    shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / "benchmark/drivers/fails.py").write_text(FAILING_DRIVER)
+    (tmp_path / "benchmark/traffic/fails.json").write_text(json.dumps({"driver": "fails"}))
+    (tmp_path / "benchmark/limits/fail.cell.json").write_text("{}")
+    spec = harness.load_spec()
+    spec["workloads"].append({"name": "fail.cell", "config": "tutorial_8627x20",
+                              "traffic": "fails", "chips": 4, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    pids = tmp_path / "pids"
+    pids.mkdir()
+    script = ("import sys\n"
+              "from benchmark import harness\n"
+              "code = harness.run_ranks('fail.cell', 1, 1.0, 0, 'cpu', 'gloo', 4, timeout=120)\n"
+              "sys.exit(code)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT]), RANK_PIDS=str(pids),
+               OMP_NUM_THREADS="1")
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=RANKS_TIMEOUT_S)
+    seconds = time.monotonic() - t0
+    assert proc.returncode == 1 and proc.stdout == "", proc.stderr[-3000:]
+    assert "a rank that fails" in proc.stderr and seconds < harness.PG_TIMEOUT_S / 4
+    assert len(list(pids.iterdir())) >= 2
+    for pid_file in pids.iterdir():
+        with pytest.raises(ProcessLookupError):
+            os.kill(int(pid_file.read_text()), 0)
+
+
+HOLDS_JAX_DRIVER = '''"""A rank named by HOLDS_JAX imports a stub module named jax in its set-up."""
+import os
+import sys
+
+
+def setup(ctx):
+    if str(ctx.rank) == os.environ["HOLDS_JAX"]:
+        sys.path.insert(0, os.environ["STUB_JAX"])
+        __import__("jax")
+
+
+def window(ctx):
+    return {}
+
+
+def profile(ctx):
+    pass
+
+
+def collect(ctx):
+    return {}
+
+
+def check(ctx, outputs):
+    return [("nothing", 0.0)]
+'''
+
+
+@pytest.mark.parametrize("holder", ["none", "2"])
+def test_a_rank_that_holds_jax_stops_the_line(tmp_path, holder):
+    """Rank 2's process holds a module named jax once its part of the run
+    is over: the launch exits 2 and prints no line, and says which rank
+    held what; with no rank holding it the same cell prints its line."""
+    shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / "benchmark/drivers/holds_jax.py").write_text(HOLDS_JAX_DRIVER)
+    (tmp_path / "benchmark/traffic/holds_jax.json").write_text(json.dumps({"driver": "holds_jax"}))
+    (tmp_path / "benchmark/limits/jax.cell.json").write_text("{}")
+    spec = harness.load_spec()
+    spec["workloads"].append({"name": "jax.cell", "config": "tutorial_8627x20",
+                              "traffic": "holds_jax", "chips": 4, "why": "a test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    stub = tmp_path / "stub"
+    stub.mkdir()
+    (stub / "jax.py").write_text('"""A stand-in named jax."""\n')
+    script = ("import sys\n"
+              "from benchmark import harness\n"
+              "sys.exit(harness.run_ranks('jax.cell', 1, 1.0, 0, 'cpu', 'gloo', 4, timeout=120))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT]), STUB_JAX=str(stub),
+               HOLDS_JAX=holder, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=RANKS_TIMEOUT_S)
+    if holder == "none":
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert json.loads(proc.stdout.strip().splitlines()[-1])["correct"] is True
+    else:
+        assert proc.returncode == 2 and proc.stdout == "", proc.stderr[-3000:]
+        assert "rank 2: jax" in proc.stderr
+
+
 def test_without_a_card_the_command_exits_without_a_result(tmp_path):
     """No CUDA device (as on this CPU machine), or a directory with only
     BENCHMARK.json and the benchmark: a code other than 0, no result."""
@@ -92,7 +280,8 @@ def read(record):
 def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     """In a copy: a new configuration, traffic mix, limits and per-layer
     metric, as new files and new entries of BENCHMARK.json, run with the
-    copied harness untouched."""
+    copied harness untouched (a cell on four devices:
+    :func:`test_a_mesh_cell_is_added_by_files_and_entries_alone`)."""
     shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
     spec = harness.load_spec()
     config = dict(harness.load_json("configs", "tutorial_8627x20.json"), name="extra_cfg",
@@ -129,6 +318,54 @@ def test_a_cell_is_added_by_files_and_entries_alone(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     metrics = json.loads(proc.stdout.strip().splitlines()[-1])
     assert metrics["extra.fits"]["value"] >= 1 and "fit.prepare_s" not in metrics
+
+
+EXTRA_MESH_METRIC = '''"""The lockstep leaves of rank 0's window."""
+
+
+def read(record):
+    return float(record["counters"].get("leaves", 0)) or None
+'''
+
+
+def test_a_mesh_cell_is_added_by_files_and_entries_alone(tmp_path):
+    """The same for a cell with ``chips`` 4: a new configuration, mesh
+    traffic mix, limits and per-layer metric, run as four ranks by the
+    copied harness untouched."""
+    shutil.copytree(BENCH, tmp_path / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
+    spec = harness.load_spec()
+    config = dict(harness.load_json("configs", "atlas_1Mx50.json"), name="extra_mesh_cfg",
+                  **TINY_CONFIG)
+    (tmp_path / "benchmark/configs/extra_mesh_cfg.json").write_text(json.dumps(config))
+    traffic = dict(harness.load_json("traffic", "nuts_8chains_mesh2x2.json"), chains=4,
+                   warmup=60, block_transitions=5)
+    (tmp_path / "benchmark/traffic/extra_mesh_mix.json").write_text(json.dumps(traffic))
+    limits = harness.load_json("limits", "atlas.nuts4.json")
+    (tmp_path / "benchmark/limits/extra.mesh.json").write_text(json.dumps(limits))
+    (tmp_path / "benchmark/metrics/extra.leaves.py").write_text(EXTRA_MESH_METRIC)
+    spec["configs"].append({"name": "extra_mesh_cfg", "source": "https://example.org/extra",
+                            "file": "benchmark/configs/extra_mesh_cfg.json", "reduced": [],
+                            "why": "a test"})
+    spec["workloads"].append({"name": "extra.mesh", "config": "extra_mesh_cfg",
+                              "traffic": "extra_mesh_mix", "chips": 4, "why": "a test"})
+    harness.find(spec["end_to_end"], "ess_per_s.atlas4", "metric")["workloads"].append(
+        "extra.mesh")
+    spec["per_layer"].append({"name": "extra.leaves", "unit": "leaves", "better": "higher",
+                              "source": "program_counter", "layer": "sampler",
+                              "moves": "ess_per_s.atlas4", "workloads": ["extra.mesh"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    script = ("import sys\n"
+              "from benchmark import harness\n"
+              "assert harness.BENCH.startswith(sys.argv[1])\n"
+              "sys.exit(harness.run_ranks('extra.mesh', 11, 1.0, 1, 'cpu', 'gloo', 4))\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), ROOT]), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", script, str(tmp_path)], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=RANKS_TIMEOUT_S)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result["metrics"]["extra.leaves"]["value"] >= 1
+    assert "nuts.ess_per_draw.atlas4" not in result["metrics"]
+    assert len(result["device"]["per_device"]) == 4
 
 
 def _imports(path):
